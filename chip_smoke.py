@@ -10,14 +10,23 @@ script exits non-zero without a result line):
   2. build    - nvcc builds the three kernels from neural_motifs_tpu_torch/csrc.
   3. kernels  - K1 RoIAlign, K2 per-class NMS, K3 greedy NMS against their
                 plain PyTorch versions on the card at the main path's
-                shapes, with CUDA-event timings of both.
+                shapes (K1 in f32 and bf16 at R = 1000, 64, 512; K3 on
+                uniform random and on RPN-like clustered boxes), with the
+                time of a call of each (CUDA events, the median of 10 calls
+                each synced; and over 10 calls in a row, the host enqueueing
+                ahead), the kernels' device time from torch.profiler (K3 split into
+                its mask and scan kernels), each kernel's bound from its
+                shapes (bytes over the HBM rate or f32 operations over the
+                f32 peak) and share of it, and a yardstick: grid_sample for
+                K1 (timed only; the port never calls it), none for K2/K3.
   4. reference- a small f32 RelModel on the card (kernels) against the same
                 model on the CPU (plain versions).
   5. requests - MotifNet SGDet at the full bench widths (592^2 images, 151
                 classes, 51 predicates, hidden 512, pooling 4096, nl_obj 2,
                 nl_edge 4, top-64 objects, 1024 pairs) with seeded random
                 weights answers 3 requests of 4 images; every kernel must
-                have launched during them.
+                have launched during them, 4 / 1 / 1 times a request; then
+                the device time of one request (torch.profiler).
   6. eval-reference - the relation-evaluation entry point
                 (training/eval_rels.main) with a small f32 model and the
                 published flags on 4 StructuredSyntheticVG images (592^2,
@@ -32,8 +41,10 @@ script exits non-zero without a result line):
                 warm-up run on the SyntheticVG fallback (8 val images), then
                 a run on 32 SyntheticVG val images that prints R@20/50/100,
                 images/s and the kernel launches; every val image is
-                evaluated once, K1 launches in every mode, K2 and K3 in
-                sgdet.
+                evaluated once; the launches are exactly K1 80 (predcls,
+                sgcls) / 32 (sgdet), K2 and K3 8 in sgdet. Then one batch
+                of the same model: its synced forward on the host's clock
+                beside its kernels' device time (torch.profiler).
   8. train-reference - one relation-training step of a small f32 RelModel
                 (phase 6's widths, the published flags) in sgcls and sgdet on
                 the card (kernels) and on the CPU (plain versions), from one
@@ -54,13 +65,16 @@ script exits non-zero without a result line):
                 peak memory, the loss, skipped steps and the training steps'
                 kernel launches; then its validation epoch over 12 val
                 images. Requires finite losses, no skipped step, the
-                detector bit-identical, K1 launched in both modes and K2 / K3
-                in sgdet, each val image evaluated once. Then a synced
+                detector bit-identical, the training steps' launches
+                exactly K1 36 in both modes and K2 / K3 12 in sgdet, each val
+                image evaluated once. Then a synced
                 split of one training step per mode (detector, sample and
                 object tower, context, relation heads, backward, optimizer).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (per kernel: its
+launches on the main path and per request, error, time, plain time, bound
+and share of it, device time, yardstick or the reason for none); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -122,6 +136,12 @@ TRAIN_ARGS = ("-model motifnet -order leftright -nl_obj 2 -nl_edge 4 "
               "-clip 5").split()
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10   # steps of phase 9
 TRAIN_VAL_IMAGES = 12
+# the kernels' launches (K1, K2, K3) on each path: 4 / 1 / 1 a SGDet
+# request; over the 32 val images of phase 7 (8 batches); over the 12
+# training steps of phase 9
+REQUEST_LAUNCHES = (4, 1, 1)
+EVAL_LAUNCHES = {"predcls": (80, 0, 0), "sgcls": (80, 0, 0), "sgdet": (32, 8, 8)}
+TRAIN_LAUNCHES = {"sgcls": (36, 0, 0), "sgdet": (36, 12, 12)}
 
 KERNELS = {
     "roi_align_fwd": dict(
@@ -143,7 +163,9 @@ def require(cond, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
+    """Median time of one call, by CUDA events around each of `reps` calls,
+    synced after each, after a warm-up: the wrapper's host work counts
+    wherever the card waits for it."""
     fn()
     times = []
     for _ in range(reps):
@@ -157,6 +179,118 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def pipelined_ms(fn, reps: int = 10) -> float:
+    """Time of one call in a stream of calls: CUDA events around `reps`
+    calls in a row after a warm-up, divided by `reps`. The host enqueues
+    ahead, so a wrapper's host work overlaps the card's; this reads lower
+    than `time_ms` by that overlap, and is not compared with it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, names: tuple, reps: int = 10) -> dict | None:
+    """Device time per call from torch.profiler's key_averages(): summed
+    over the kernels whose names hold each of `names`, and over every
+    kernel of the call ("all"); None where the profiler shows no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names + ("all",), 0.0)
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        out["all"] += us / 1e3 / reps
+        for n in names:
+            if n in evt.key:
+                out[n] += us / 1e3 / reps
+    return out if out["all"] else None
+
+
+# The published peaks of one H100 SXM:
+PEAK_BYTES_PER_S = 3.35e12      # HBM3
+PEAK_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+# f32 operations of one +1-convention IoU test: per axis min, max, sub, +1
+# (8); two clamps and the product (3); union add, sub, clamp (3); the
+# division; the comparison with the threshold
+IOU_OPS = 16
+# f32 operations of one RoIAlign output value: three lerps w0 * a + w1 * b
+LERP_OPS = 9
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """The least time the card could take (ms), the larger of bytes over the
+    HBM rate and f32 operations over the f32 peak, and which one it is."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roi_align_bound(b: int, h: int, w: int, c: int, r: int, p: int, elem: int) -> tuple:
+    n_bytes = (b * h * w * c * elem        # the map, read once
+               + b * r * (4 * 4 + 1)       # RoIs (f32) and valid flags
+               + b * r * p * p * c * elem)  # the crops, written once
+    return bound(n_bytes, b * r * p * p * c * LERP_OPS)
+
+
+def greedy_pairs(keep_sorted, valid_sorted) -> int:
+    """The IoU tests this data needs: every kept box against each valid box
+    ranked after it (a suppressed box suppresses nothing)."""
+    v = valid_sorted.long()
+    later = v.flip(-1).cumsum(-1).flip(-1) - v
+    return int((later * keep_sorted.long()).sum())
+
+
+def nms_bound(n_boxes: int, bytes_per_box: int, pairs: int) -> tuple:
+    return bound(n_boxes * bytes_per_box, pairs * IOU_OPS)
+
+
+def rpn_like_boxes(gen, dev, n: int):
+    """RPN-like clustered proposals: n of the 37x37x20 anchors of a 592^2
+    image per image, decoded with seeded deltas (N(0, 0.1) centres, N(0,
+    0.2) log-sizes) and clipped to the image."""
+    from neural_motifs_tpu_torch.ops.anchors import generate_anchors
+    from neural_motifs_tpu_torch.ops.boxes import bbox_preds, clip_boxes
+    anchors = torch.from_numpy(generate_anchors().reshape(-1, 4)).to(dev)
+    pick = torch.rand(BATCH, len(anchors), generator=gen, device=dev).argsort(1)[:, :n]
+    deltas = torch.randn(BATCH, n, 4, generator=gen, device=dev) \
+        * torch.tensor([0.1, 0.1, 0.2, 0.2], device=dev)
+    im = torch.full((BATCH, 1), float(C.IM_SCALE), device=dev)
+    return clip_boxes(bbox_preds(anchors[pick], deltas), im, im)
+
+
+def yardstick_grid_sample(fmap, rois, p: int, scale: float):
+    """torch's grid_sample (align_corners=True) at the RoIAlign sample
+    points of fmap [B,H,W,C]: the same bilinear samples except that it
+    weighs a sample outside [0, G-1] partly, where K1 gives zero. Timed
+    as K1's yardstick only; the port never calls it."""
+    _, h, w, _ = fmap.shape
+    t = torch.arange(p, device=fmap.device, dtype=torch.float32) / (p - 1)
+    lo, hi = rois[..., :2] * scale, rois[..., 2:] * scale          # [B,R,2]
+    u = lo[..., None] + (hi - lo)[..., None] * t                   # [B,R,2,P]
+    gx = u[:, :, 0] / (w - 1) * 2 - 1
+    gy = u[:, :, 1] / (h - 1) * 2 - 1
+    grid = torch.stack(torch.broadcast_tensors(gx[:, :, None, :], gy[:, :, :, None]), -1)
+    grid = grid.reshape(fmap.shape[0], -1, p, 2).to(fmap.dtype)    # [B, R*P, P, 2]
+    x = fmap.permute(0, 3, 1, 2)                                   # NCHW view
+    return lambda: torch.nn.functional.grid_sample(x, grid, mode="bilinear",
+                                                   padding_mode="zeros",
+                                                   align_corners=True)
+
+
 def rand_boxes(gen, shape, scale, dev):
     xy = torch.rand(shape + (2,), generator=gen, device=dev) * scale
     wh = 1.0 + torch.rand(shape + (2,), generator=gen, device=dev) * (scale / 2)
@@ -164,30 +298,48 @@ def rand_boxes(gen, shape, scale, dev):
 
 
 def check_kernels(dev, gen) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes,
+    with its time (CUDA events), its device time (profiler), its bound and
+    its yardstick."""
     res = {}
     # K1: the detector's 1000 proposals, the 64 objects, a 512-pair union
     # chunk; RoIs partly outside the 37x37 map, ~10% invalid
     fmap = torch.randn(BATCH, 37, 37, 512, generator=gen, device=dev)
-    errs, t_k, t_p = [], 0.0, 0.0
+    f16 = fmap.bfloat16()
+    errs, k1 = [], {}
     for r in (1000, 64, 512):
         rois = rand_boxes(gen, (BATCH, r), 700, dev) - 50.0
         valid = torch.rand(BATCH, r, generator=gen, device=dev) < 0.9
         got = ra.roi_align_cuda(fmap, rois, valid, 7, 1 / 16)
         exp = ra._roi_align_matmul(fmap, rois, valid, 7, 1 / 16)
         errs.append((got - exp).abs().max().item())
-        if r == 1000:
-            f16 = fmap.bfloat16()
+        got16 = ra.roi_align_cuda(f16, rois, valid, 7, 1 / 16).float()
+        torch.testing.assert_close(got16, exp, rtol=2e-2, atol=2e-2)
+        if r in (1000, 512):
             t_k = time_ms(lambda: ra.roi_align_cuda(f16, rois, valid, 7, 1 / 16))
-            t_p = time_ms(lambda: ra._roi_align_matmul(f16, rois, valid, 7, 1 / 16))
-            got16 = ra.roi_align_cuda(f16, rois, valid, 7, 1 / 16).float()
-            torch.testing.assert_close(got16, exp, rtol=2e-2, atol=2e-2)
+            t_s = pipelined_ms(lambda: ra.roi_align_cuda(f16, rois, valid, 7, 1 / 16))
+            t_p = time_ms(lambda: ra._roi_align_matmul(f16, rois, valid, 7, 1 / 16), reps=3)
+            dev_t = device_ms(lambda: ra.roi_align_cuda(f16, rois, valid, 7, 1 / 16),
+                              ("roi_align",))
+            b_ms, b_by = roi_align_bound(BATCH, 37, 37, 512, r, 7, 2)
+            k1[r] = dict(ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms,
+                         bound_by=b_by, device_ms=dev_t and dev_t["roi_align"],
+                         share_of_bound=b_ms / t_k)
+            if r == 1000:
+                k1[r]["library_ms"] = time_ms(yardstick_grid_sample(f16, rois, 7, 1 / 16))
     err = max(errs)
     require(err <= 1e-4, f"K1 f32 max abs error {err} > 1e-4")
-    res["roi_align_fwd"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p)
+    res["roi_align_fwd"] = dict(max_abs_err=err, **k1[1000], r512=k1[512])
+    for r, k in k1.items():
+        print(f"K1 roi_align_fwd bf16 R={r}: kernel {k['ms']:.4f} ms a synced call "
+              f"({k['pipelined_ms']:.4f} in a stream of calls, device "
+              f"{k['device_ms'] if k['device_ms'] is not None else 'not measured'}), "
+              f"plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), share of bound {k['share_of_bound']:.3f}"
+              + (f", grid_sample {k['library_ms']:.4f} ms" if "library_ms" in k else ""),
+              flush=True)
     print(f"K1 roi_align_fwd: f32 max|err| {err:.3e} (R=1000/64/512, tol 1e-4), "
-          f"bf16 within rtol 2e-2; bf16 R=1000: kernel {t_k:.3f} ms, plain {t_p:.3f} ms",
-          flush=True)
+          f"bf16 within rtol 2e-2 at each R", flush=True)
 
     # K2: per-class candidates [4, 151, 256] at 0.3
     boxes = rand_boxes(gen, (BATCH, 151, 256), 592, dev)
@@ -198,24 +350,58 @@ def check_kernels(dev, gen) -> dict:
     diff = (got != exp).sum().item()
     require(diff == 0, f"K2 keep masks differ in {diff} places")
     t_k = time_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
+    t_s = pipelined_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
     t_p = time_ms(lambda: nms._perclass_nms_plain(boxes, valid, 0.3), reps=3)
-    res["perclass_nms"] = dict(max_abs_err=float(diff), ms=t_k, plain_ms=t_p)
-    print(f"K2 perclass_nms: keep identical ({int(got.sum())} kept); "
-          f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+    dev_t = device_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3), ("perclass_nms",))
+    b_ms, b_by = nms_bound(BATCH * 151 * 256, 16 + 1 + 1, greedy_pairs(got, valid))
+    res["perclass_nms"] = dict(
+        max_abs_err=float(diff), ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms,
+        bound_by=b_by, share_of_bound=b_ms / t_k, device_ms=dev_t and dev_t["perclass_nms"],
+        library_ms=None, library_reason="no single PyTorch call computes greedy NMS")
+    print(f"K2 perclass_nms: keep identical ({int(got.sum())} kept); kernel "
+          f"{t_k:.4f} ms a synced call ({t_s:.4f} in a stream of calls, device "
+          f"{res['perclass_nms']['device_ms']}), plain "
+          f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+          f"{b_ms / t_k:.3f}", flush=True)
 
-    # K3: the RPN's pre-NMS top 6000 per image at 0.7
-    boxes = rand_boxes(gen, (BATCH, 6000), 592, dev)
-    scores = torch.rand(BATCH, 6000, generator=gen, device=dev)
-    valid = torch.rand(BATCH, 6000, generator=gen, device=dev) < 0.95
-    got = nms.greedy_nms_cuda(boxes, scores, valid, 0.7)
-    exp = nms._greedy_nms_plain(boxes, scores, valid, 0.7)
-    diff = (got != exp).sum().item()
-    require(diff == 0, f"K3 keep masks differ in {diff} places")
-    t_k = time_ms(lambda: nms.greedy_nms_cuda(boxes, scores, valid, 0.7))
-    t_p = time_ms(lambda: nms._greedy_nms_plain(boxes, scores, valid, 0.7), reps=3)
-    res["greedy_nms"] = dict(max_abs_err=float(diff), ms=t_k, plain_ms=t_p)
-    print(f"K3 greedy_nms: keep identical ({int(got.sum())} kept); "
-          f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+    # K3: the RPN's pre-NMS top 6000 per image at 0.7, on uniform random
+    # boxes and on RPN-like clustered ones
+    k3 = {}
+    for kind in ("random", "clustered"):
+        boxes = (rand_boxes(gen, (BATCH, 6000), 592, dev) if kind == "random"
+                 else rpn_like_boxes(gen, dev, 6000))
+        scores = torch.rand(BATCH, 6000, generator=gen, device=dev)
+        valid = torch.rand(BATCH, 6000, generator=gen, device=dev) < 0.95
+        got = nms.greedy_nms_cuda(boxes, scores, valid, 0.7)
+        exp = nms._greedy_nms_plain(boxes, scores, valid, 0.7)
+        diff = (got != exp).sum().item()
+        require(diff == 0, f"K3 keep masks differ in {diff} places ({kind} boxes)")
+        t_k = time_ms(lambda: nms.greedy_nms_cuda(boxes, scores, valid, 0.7))
+        t_s = pipelined_ms(lambda: nms.greedy_nms_cuda(boxes, scores, valid, 0.7))
+        t_p = time_ms(lambda: nms._greedy_nms_plain(boxes, scores, valid, 0.7), reps=3)
+        split = device_ms(lambda: nms.greedy_nms_cuda(boxes, scores, valid, 0.7),
+                          ("nms_mask", "nms_scan"))
+        _, order = nms.sort_desc(torch.where(valid, scores, torch.full_like(scores, -1.0)), 1)
+        pairs = greedy_pairs(got.gather(1, order), valid.gather(1, order))
+        b_ms, b_by = nms_bound(BATCH * 6000, 16 + 4 + 1 + 1, pairs)
+        k3[kind] = dict(ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms,
+                        bound_by=b_by, share_of_bound=b_ms / t_k, kept=int(got.sum()),
+                        iou_tests=pairs,
+                        mask_ms=split and split["nms_mask"],
+                        scan_ms=split and split["nms_scan"],
+                        call_device_ms=split and split["all"])
+        print(f"K3 greedy_nms {kind}: keep identical ({int(got.sum())} kept); "
+              f"kernel {t_k:.4f} ms a synced call ({t_s:.4f} in a stream of calls; "
+              f"device: mask "
+              f"{split['nms_mask'] if split else 'not measured'}, scan "
+              f"{split['nms_scan'] if split else 'not measured'} ms, every kernel "
+              f"of the call {split['all'] if split else 'not measured'} ms), plain "
+              f"{t_p:.3f} ms, bound {b_ms:.5f} ms ({b_by}, {pairs} IoU tests), "
+              f"share {b_ms / t_k:.4f}", flush=True)
+    res["greedy_nms"] = dict(max_abs_err=0.0, **k3["random"], clustered=k3["clustered"],
+                             library_ms=None,
+                             library_reason="no single PyTorch call computes greedy NMS "
+                                            "(torchvision.ops.nms is not installed)")
     return res
 
 
@@ -565,9 +751,8 @@ def check_train(smi: str) -> None:
         for name, v in res.model.detector.state_dict().items():
             require(torch.equal(v.cpu(), det_init[name]), f"train {mode}: detector changed at {name}")
         launches = at_val["launches"]
-        need = ["roi_align_fwd"] + (["perclass_nms", "greedy_nms"] if mode == "sgdet" else [])
-        missing = [n for n in need if launches[n] == 0]
-        require(not missing, f"train {mode}: kernels never launched in training: {missing}")
+        require(tuple(launches.values()) == TRAIN_LAUNCHES[mode],
+                f"train {mode}: launches {launches}, expected {TRAIN_LAUNCHES[mode]}")
         r = check_recalls(res.evaluator, mode, TRAIN_VAL_IMAGES)
         timed = [h["step_s"] for h in hist[TRAIN_WARMUP:]]
         med = statistics.median(timed)
@@ -595,6 +780,38 @@ def check_train(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+def eval_batch_profile(argv: list, datasets) -> str:
+    """One batch of the first val images through the model eval_rels.main
+    builds for `argv` (its seed, its -ckpt): the synced forward on the
+    host's clock (median of 3) beside the device time of its kernels
+    (torch.profiler, 2 batches), K1-K3 apart; what the host adds is the
+    difference."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg = C.ModelConfig.from_args(argv)
+        model = build_model(cfg, datasets[0], "cuda",
+                            torch.Generator(device="cuda").manual_seed(eval_rels.SEED))
+        eval_rels.restore_rel_variables(cfg, model)
+    batch = Loader(datasets[1], cfg.batch_size, shuffle=False, budgets=cfg.budgets,
+                   **loader_im_kw(cfg)).peek()
+    kw = to_device(batch_kwargs(batch), "cuda")
+    model(**kw)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(**kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dev_t = device_ms(lambda: model(**kw),
+                      ("roi_align", "perclass_nms", "nms_mask", "nms_scan"), reps=2)
+    del model
+    return (f"synced forward {statistics.median(times):.3f} ms (median of 3), device "
+            + ("not measured" if dev_t is None else
+               f"{dev_t['all']:.3f} ms of kernels, of which K1 {dev_t['roi_align']:.3f}, "
+               f"K2 {dev_t['perclass_nms']:.3f}, K3 "
+               f"{dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms"))
+
+
 def check_eval(smi: str) -> None:
     """Phase 7: the published MotifNet eval in all three modes. Per mode,
     a warm-up run on the SyntheticVG fallback (8 val images; the first
@@ -613,19 +830,20 @@ def check_eval(smi: str) -> None:
             for k in KERNELS.values():
                 k["wrapper"].launches = 0
             ev, lines, rate = run_eval(argv, timed, "cuda")
-        torch.cuda.synchronize()
-        launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+            torch.cuda.synchronize()
+            launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+            profile = eval_batch_profile(argv, timed)
         r = check_recalls(ev, mode, n_val)
-        need = ["roi_align_fwd"] + (["perclass_nms", "greedy_nms"]
-                                    if mode == "sgdet" else [])
-        missing = [n for n in need if launches[n] == 0]
-        require(not missing, f"eval {mode}: kernels never launched: {missing}")
+        require(tuple(launches.values()) == EVAL_LAUNCHES[mode],
+                f"eval {mode}: launches {launches}, expected {EVAL_LAUNCHES[mode]}")
         for ln in lines:
             if not ln.startswith("optimistic_restore"):
                 print(f"  {ln}", flush=True)
         print(f"eval {mode}: {n_val} images after a warm-up, {rate:.3f} img/s, "
               f"R@20/50/100 {r[20]} / {r[50]} / {r[100]}; on {smi}: "
               f"launches {launches}", flush=True)
+        print(f"eval-batch {mode}: one batch of 4 on {smi}: {profile}", flush=True)
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -648,12 +866,14 @@ def main() -> None:
     _cuda.lib()
     print(f"build: {time.time() - t0:.1f} s -> {so.name}", flush=True)
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    kres = check_kernels(dev, gen)
+    # phase 3 draws from its own generator, so that the main path's weights
+    # and images do not depend on what phase 3 measures
+    kres = check_kernels(dev, torch.Generator(device=dev).manual_seed(SEED + 3))
     check_reference(dev)
 
     budgets = C.PadBudgets()
     nc, npred = C.VG_NUM_CLASSES, C.VG_NUM_PREDICATES
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     model = bench_model(dev, gen)
     im = C.IM_SCALE
     requests = [torch.randn(BATCH, im, im, 3, generator=gen, device=dev) * 0.3
@@ -674,8 +894,8 @@ def main() -> None:
         check_prediction(pred, BATCH, budgets.objs_per_img, budgets.max_pairs_eval,
                          nc, npred)
     launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
-    missing = [n for n, c in launches.items() if c == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
+    require(tuple(launches.values()) == tuple(REQUESTS * n for n in REQUEST_LAUNCHES),
+            f"main path launches {launches}, expected {REQUEST_LAUNCHES} a request")
     med = statistics.median(lat)
     print(f"requests: {REQUESTS} x {BATCH} images {im}x{im} on {smi}: latency "
           f"{[round(t * 1e3, 3) for t in lat]} ms, median {med * 1e3:.3f} ms, "
@@ -683,6 +903,15 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; objects "
           f"{int(pred.obj_valid.sum())}, relations {int(pred.rel_valid.sum())}; "
           f"launches {launches}", flush=True)
+    # the device time of one request, which the host's speed does not move
+    # (after the counted requests: these launches are not counted)
+    dev_t = device_ms(lambda: model(requests[0], im_hw),
+                      ("roi_align", "perclass_nms", "nms_mask", "nms_scan"), reps=2)
+    print("request device time: " + (
+        "not measured" if dev_t is None else
+        f"{dev_t['all']:.3f} ms of kernels a request, of which K1 "
+        f"{dev_t['roi_align']:.3f}, K2 {dev_t['perclass_nms']:.3f}, K3 "
+        f"{dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms"), flush=True)
     del model, requests, pred
     torch.cuda.empty_cache()
 
@@ -691,12 +920,11 @@ def main() -> None:
     check_train_reference(dev)
     check_train(smi)
 
-    record = {"kernels": [
+    print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
-             launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
-             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"])
-        for name, k in KERNELS.items()]}
-    print(json.dumps(record), flush=True)
+             launches=launches[name], launches_per_request=launches[name] / REQUESTS,
+             **kres[name])
+        for name, k in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -3,9 +3,10 @@
 
 Two functions carry a kernel each:
   * `greedy_nms_mask` — exact greedy NMS over [L, N] lanes. CUDA tensors go
-    to `greedy_nms_cuda` (csrc/nms.cu: bitmask + on-device scan, replacing
-    the Pallas `pallas_greedy_nms`); CPU tensors to `_greedy_nms_plain`,
-    the tiled fixpoint of the JAX `greedy_nms_mask`.
+    to `greedy_nms_cuda` (csrc/nms.cu: a 64-bit suppression mask over the
+    upper triangle, then a scan that resolves 64-box chunks in shared
+    memory; replacing the Pallas `pallas_greedy_nms`); CPU tensors to
+    `_greedy_nms_plain`, the tiled fixpoint of the JAX `greedy_nms_mask`.
   * `perclass_nms` — the rank-sequential pass over score-sorted per-class
     candidates. CUDA tensors go to `perclass_nms_cuda` (replacing the
     Pallas `pallas_perclass_nms`); CPU tensors to `_perclass_nms_plain`.
@@ -25,7 +26,7 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e10
 _MAX_PERCLASS_K = 2048     # shared memory of one block: 24 bytes a candidate
-_MAX_GREEDY_N = 43000      # shared memory of one scan warp: ~1.1 bytes a box
+_MAX_GREEDY_N = 43000      # the mask scratch is N^2/8 bytes a lane (231 MB here)
 
 
 def sort_desc(x: Tensor, dim: int = -1) -> tuple[Tensor, Tensor]:
@@ -94,6 +95,7 @@ def greedy_nms_cuda(boxes: Tensor, scores: Tensor, valid: Tensor,
     v_sorted = valid.gather(1, order).contiguous()
     _cuda.require_cuda("greedy_nms_cuda", b_sorted, v_sorted)
     words = (n + 63) // 64
+    words += words % 2          # 16-byte mask rows for the scan's bulk copies
     mask = torch.empty((l, n, words), dtype=torch.int64, device=boxes.device)
     keep_sorted = torch.empty((l, n), dtype=torch.bool, device=boxes.device)
     code = _cuda.lib().nm_greedy_nms(
@@ -102,7 +104,7 @@ def greedy_nms_cuda(boxes: Tensor, scores: Tensor, valid: Tensor,
         _cuda.stream_ptr(boxes.device))
     _cuda.check(code, "greedy_nms_cuda")
     greedy_nms_cuda.launches += 1
-    return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
+    return torch.empty_like(keep_sorted).scatter_(1, order, keep_sorted)
 
 
 greedy_nms_cuda.launches = 0

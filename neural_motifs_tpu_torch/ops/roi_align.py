@@ -11,8 +11,10 @@ Two evaluations of the same function:
     matrices R_y [P, H] and R_x [P, W] and out[r] = R_y[r] @ fmap @ R_x[r]^T.
     It runs for CPU tensors, in `roi_align_chunk` chunks of RoIs.
   * `roi_align_cuda`, the hand-written gather-and-lerp kernel
-    (csrc/roi_align.cu) that replaces the Pallas `pallas_roi_align`. It runs
-    for CUDA tensors, unchunked: it keeps no [R, P, W, C] intermediate.
+    (csrc/roi_align.cu: the taps gathered from a shared-memory copy of a
+    channel slice of the map, or from device memory for a map too large
+    for that) that replaces the Pallas `pallas_roi_align`. It runs for
+    CUDA tensors, unchunked: it keeps no [R, P, W, C] intermediate.
 
 The sample coordinates are always computed in f32 from f32 RoIs, whatever
 the feature map's type.

@@ -132,3 +132,154 @@ def test_greedy_nms_kernel_matches_plain(np_rng, cuda, n):
     torch.cuda.synchronize()
     assert nms.greedy_nms_cuda.launches == before + 1
     assert torch.equal(got, nms._greedy_nms_plain(boxes, scores, valid, 0.7))
+
+
+def anchor_like_boxes(rng, lanes, n, im=592):
+    """Clustered RPN-like proposals: n anchors of an im^2 image per lane,
+    decoded with seeded deltas and clipped to the image."""
+    from neural_motifs_tpu_torch.ops.anchors import generate_anchors
+    from neural_motifs_tpu_torch.ops.boxes import bbox_preds, clip_boxes
+    anchors = generate_anchors(im_scale=im).reshape(-1, 4)
+    pick = np.stack([rng.permutation(len(anchors))[:n] for _ in range(lanes)])
+    deltas = (rng.standard_normal((lanes, n, 4)) * [0.1, 0.1, 0.2, 0.2]).astype(np.float32)
+    boxes = bbox_preds(T(anchors[pick]), T(deltas))
+    size = torch.full((lanes, 1), float(im))
+    return clip_boxes(boxes, size, size)
+
+
+def at_threshold_boxes(rng, n):
+    """n/2 nested pairs a 10x10 box holds: 10x7 (IoU exactly 0.7 in f32),
+    8x9 (0.72) or 9x7 (0.63), spread so that pairs rarely meet."""
+    xy = rng.uniform(0, 400, (n // 2, 2)).astype(np.float32).round()
+    a = np.concatenate([xy, xy + 9], 1)
+    wh = np.array([[10, 7], [8, 9], [9, 7]], np.float32)[rng.randint(0, 3, n // 2)]
+    b = np.concatenate([xy, xy + wh - 1], 1)
+    return np.concatenate([a, b], 0)
+
+
+def assert_greedy_kernel_matches(boxes, scores, valid, thresh):
+    before = nms.greedy_nms_cuda.launches
+    got = nms.greedy_nms_mask(boxes, scores, valid, thresh)
+    torch.cuda.synchronize()
+    assert nms.greedy_nms_cuda.launches == before + 1
+    exp = nms._greedy_nms_plain(boxes.cpu(), scores.cpu(), valid.cpu(), thresh)
+    assert torch.equal(got.cpu(), exp)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 6000, 9000])
+def test_greedy_nms_kernel_chunk_edges(np_rng, cuda, n):
+    """K3 at every edge of its 64-box chunks, with one all-invalid lane:
+    identical keep masks; the invalid lane keeps nothing. N = 9000 (141
+    mask words a row) loads its tiles in column pieces."""
+    boxes = T(rand_boxes(np_rng, (3, n), 592)).to(cuda)
+    scores = T(np_rng.uniform(0, 1, (3, n)).astype(np.float32)).to(cuda)
+    valid = T(np_rng.uniform(0, 1, (3, n)) < 0.9).to(cuda)
+    valid[1] = False
+    got = assert_greedy_kernel_matches(boxes, scores, valid, 0.7)
+    assert not got[1].any()
+
+
+@pytest.mark.gpu
+def test_greedy_nms_kernel_clustered(np_rng, cuda):
+    """K3 on RPN-like clustered boxes at [4, 6000], t = 0.7."""
+    boxes = anchor_like_boxes(np_rng, 4, 6000).to(cuda)
+    scores = T(np_rng.uniform(0, 1, (4, 6000)).astype(np.float32)).to(cuda)
+    valid = T(np_rng.uniform(0, 1, (4, 6000)) < 0.95).to(cuda)
+    got = assert_greedy_kernel_matches(boxes, scores, valid, 0.7)
+    assert 0 < int(got.sum()) < int(valid.sum()), "clustered boxes must suppress"
+
+
+@pytest.mark.gpu
+def test_greedy_nms_kernel_at_threshold(np_rng, cuda):
+    """K3 on box pairs whose f32 IoU equals the threshold exactly: kept
+    (the test is strictly greater), as in the plain version."""
+    boxes = T(np.stack([at_threshold_boxes(np_rng, 400) for _ in range(2)])).to(cuda)
+    scores = T(np_rng.uniform(0, 1, (2, 400)).astype(np.float32)).to(cuda)
+    valid = torch.ones(2, 400, dtype=torch.bool, device=cuda)
+    assert_greedy_kernel_matches(boxes, scores, valid, 0.7)
+
+
+@pytest.mark.gpu
+def test_per_class_nms_exact_route(np_rng, cuda):
+    """per_class_nms_mask(per_class_topk=None): 604 lanes of 256 through K3."""
+    b, n, c = 4, 256, 151
+    boxes = T(rand_boxes(np_rng, (b, n, c), 592))
+    probs = T(np_rng.dirichlet(np.ones(c), (b, n)).astype(np.float32))
+    valid = T(np_rng.uniform(0, 1, (b, n)) < 0.9)
+    before = nms.greedy_nms_cuda.launches
+    got = nms.per_class_nms_mask(boxes.to(cuda), probs.to(cuda), valid.to(cuda), 0.3,
+                                 0.0, per_class_topk=None)
+    torch.cuda.synchronize()
+    assert nms.greedy_nms_cuda.launches == before + 1
+    exp = nms.per_class_nms_mask(boxes, probs, valid, 0.3, 0.0, per_class_topk=None)
+    assert torch.equal(got.cpu(), exp)
+
+
+def assert_roi_kernel_matches(fmap, rois, valid, tol):
+    """K1 on the card against the plain form on the same (f32) values."""
+    before = ra.roi_align_cuda.launches
+    got = ra.roi_align(fmap, rois, valid, 7, 1 / 16)
+    torch.cuda.synchronize()
+    assert ra.roi_align_cuda.launches == before + 1
+    assert got.dtype == fmap.dtype and got.is_contiguous()
+    exp = ra._roi_align_matmul(fmap.float(), rois, valid, 7, 1 / 16)
+    if fmap.dtype == torch.float32:
+        assert (got - exp).abs().max().item() <= tol
+    else:
+        torch.testing.assert_close(got.float(), exp, rtol=tol, atol=tol)
+    return got
+
+
+DTYPE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [512, 20])
+def test_roi_align_kernel_channels(np_rng, cuda, c, dtype):
+    """K1's shared-memory path with full 16-byte channel vectors (C=512)
+    and with a channel tail (C=20)."""
+    fmap, rois, valid = roi_case(np_rng, 2, 300, c=c)
+    f = T(fmap).to(cuda).to(dtype)
+    assert_roi_kernel_matches(f, T(rois).to(cuda), T(valid).to(cuda), DTYPE_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_unaligned_map(np_rng, cuda, dtype):
+    """A contiguous map view whose data pointer is not 16-byte aligned
+    (a flat buffer at an odd element offset) takes element copies."""
+    fmap, rois, valid = roi_case(np_rng, 2, 200, c=64)
+    flat = torch.zeros(fmap.size + 1, dtype=dtype, device=cuda)
+    f = flat[1:].view(fmap.shape)
+    f.copy_(T(fmap))
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    assert_roi_kernel_matches(f, T(rois).to(cuda), T(valid).to(cuda), DTYPE_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_roi_align_kernel_edge_rois(np_rng, cuda):
+    """RoIs wholly outside the map, zero-width RoIs and invalid RoIs."""
+    fmap = T(np_rng.standard_normal((1, 37, 37, 512)).astype(np.float32)).to(cuda)
+    rois = torch.tensor([[[700, 700, 900, 800],     # right of / below the map
+                          [-300, -200, -100, -50],  # left of / above it
+                          [100, 50, 100, 300],      # zero width
+                          [64, 64, 352, 576],       # samples on G-1 exactly
+                          [10, 20, 300, 400]]], dtype=torch.float32, device=cuda)
+    valid = torch.tensor([[True, True, True, True, False]], device=cuda)
+    got = assert_roi_kernel_matches(fmap, rois, valid, 1e-4)
+    assert not got[0, [0, 1, 4]].any()
+    assert got[0, 2].abs().sum() > 0 and got[0, 3].abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_large_map(np_rng, cuda, dtype):
+    """A 128x128 map, whose 8-channel slice does not fit in shared memory,
+    takes the device-memory gather of the same entry point."""
+    fmap, rois, valid = roi_case(np_rng, 2, 50, h=128, w=128, c=64)
+    rois = rois * (128 / 37)
+    f = T(fmap).to(cuda).to(dtype)
+    assert_roi_kernel_matches(f, T(rois).to(cuda), T(valid).to(cuda), DTYPE_TOL[dtype])

@@ -105,3 +105,92 @@ def test_per_class_nms_mask_matches_jax(rng, topk):
                                       per_class_topk=topk)
         np.testing.assert_array_equal(got[bi], np.asarray(exp), err_msg=f"image {bi}")
     assert not got[..., 0].any() and not got[..., 4].any() and got.any()
+
+
+def chunked_scan_mirror(boxes, scores, valid, thresh):
+    """numpy mirror of K3 (csrc/nms.cu) for one lane: 64-bit mask words as
+    nms_mask_kernel builds them (IoU of box i with box 64v + k > i, f32
+    with one rounding an operation), then nms_scan_kernel's walk: per
+    64-box chunk, the warp fixpoint alive = base & ~OR(alive rows) on the
+    chunk's own word, then the kept rows ORed into the later words."""
+    f = np.float32
+    n = len(scores)
+    masked = np.where(valid, scores, -np.inf).astype(np.float32)
+    order = np.argsort(-masked, kind="stable")
+    x1, y1, x2, y2 = boxes[order].astype(np.float32).T
+    v = valid[order]
+    one = f(1)
+    area = ((x2 - x1) + one) * ((y2 - y1) + one)
+    iw = (np.minimum(x2[:, None], x2[None]) - np.maximum(x1[:, None], x1[None])) + one
+    ih = (np.minimum(y2[:, None], y2[None]) - np.maximum(y1[:, None], y1[None])) + one
+    inter = np.maximum(iw, f(0)) * np.maximum(ih, f(0))
+    union = np.maximum((area[:, None] + area[None]) - inter, f(1e-8))
+    with np.errstate(invalid="ignore"):
+        hit = np.where(inter == 0, f(0) > f(thresh), (inter / union) > f(thresh))
+    hit &= np.triu(np.ones((n, n), bool), 1)
+    nw = (n + 63) // 64
+    words = [[sum(1 << k for k in range(64) if 64 * w + k < n and hit[i, 64 * w + k])
+              for w in range(nw)] for i in range(n)]
+    removed = [0] * nw
+    keep = np.zeros(n, bool)
+    for w in range(nw):
+        rows = range(64 * w, min(n, 64 * w + 64))
+        base = sum(1 << (i - 64 * w) for i in rows if v[i]) & ~removed[w]
+        alive = base
+        while True:
+            sup = 0
+            for i in rows:
+                if alive >> (i - 64 * w) & 1:
+                    sup |= words[i][w]
+            nxt = base & ~sup
+            if nxt == alive:
+                break
+            alive = nxt
+        for i in rows:
+            keep[i] = bool(alive >> (i - 64 * w) & 1)
+            if keep[i]:
+                for u in range(w + 1, nw):
+                    removed[u] |= words[i][u]
+    out = np.zeros(n, bool)
+    out[order] = keep
+    return out
+
+
+def clustered_lanes(rng, l, n, im=96):
+    """RPN-like clustered boxes: n of the 6x6x20 anchors of a 96^2 image,
+    decoded with small seeded deltas and clipped."""
+    from neural_motifs_tpu_torch.ops.anchors import generate_anchors
+    from neural_motifs_tpu_torch.ops.boxes import bbox_preds, clip_boxes
+    anchors = generate_anchors(im_scale=im).reshape(-1, 4)
+    pick = np.stack([rng.permutation(len(anchors))[:n] for _ in range(l)])
+    deltas = (rng.standard_normal((l, n, 4)) * [0.1, 0.1, 0.2, 0.2]).astype(np.float32)
+    size = torch.full((l, 1), float(im))
+    boxes = clip_boxes(bbox_preds(T(anchors[pick]), T(deltas)), size, size).numpy()
+    return boxes, rng.uniform(0, 1, (l, n)).astype(np.float32), rng.uniform(0, 1, (l, n)) < 0.9
+
+
+@pytest.mark.parametrize("n", [77, 150])
+@pytest.mark.parametrize("kind", ["random", "clustered", "at_threshold"])
+def test_chunked_scan_mirror_matches_jax(rng, kind, n):
+    """The chunked scan of K3, mirrored in numpy, == the JAX greedy_nms_mask
+    and the port's plain tiled fixpoint, lane by lane, at t = 0.7 (N not a
+    multiple of 64; several chunks)."""
+    from tests.test_torch_kernels import at_threshold_boxes
+    if kind == "random":
+        boxes, scores, valid = lanes(rng, 2, n)
+    elif kind == "clustered":
+        boxes, scores, valid = clustered_lanes(rng, 2, n)
+    else:
+        boxes = np.stack([at_threshold_boxes(rng, n) for _ in range(2)])
+        if n % 2:
+            boxes = np.concatenate([boxes, boxes[:, :1] + 500.0], 1)
+        scores = rng.uniform(0, 1, (2, n)).astype(np.float32)
+        valid = np.ones((2, n), bool)
+    plain = port._greedy_nms_plain(T(boxes), T(scores), T(valid), 0.7).numpy()
+    for li in range(2):
+        got = chunked_scan_mirror(boxes[li], scores[li], valid[li], 0.7)
+        exp = jnms.greedy_nms_mask(jnp.asarray(boxes[li]), jnp.asarray(scores[li]),
+                                   jnp.asarray(valid[li]), 0.7)
+        np.testing.assert_array_equal(got, np.asarray(exp), err_msg=f"lane {li}")
+        np.testing.assert_array_equal(got, plain[li], err_msg=f"lane {li}")
+    assert got.any() and not got.all()

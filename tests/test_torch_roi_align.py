@@ -60,3 +60,32 @@ def test_roi_align_matches_pallas_interpret(rng):
     got = port.roi_align(torch.from_numpy(fmap), torch.from_numpy(rois),
                          torch.from_numpy(valid), 7, 1.0 / 16.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
+EDGE_ROIS = {
+    # x1 * s = 4 and x2 * s = 22: step 3, the last x sample exactly on G-1
+    # (the right neighbour does not exist); y likewise on 18 = H-1
+    "sample_on_last_cell": [64.0, 16.0, 352.0, 288.0],
+    "zero_width": [100.0, 40.0, 100.0, 200.0],
+    "wholly_outside": [400.0, 350.0, 600.0, 500.0],
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_ROIS))
+def test_roi_align_edge_rois_match_jax(rng, case):
+    """Edge RoIs of the plain form against the JAX separable form: a sample
+    exactly at G-1, a zero-width RoI, a RoI wholly outside the map (zeros)."""
+    fmap = rng.standard_normal((1, 19, 23, 8)).astype(np.float32)
+    rois = np.array([[EDGE_ROIS[case], [10.0, 20.0, 150.0, 170.0]]], np.float32)
+    valid = np.ones((1, 2), bool)
+    got = port.roi_align(torch.from_numpy(fmap), torch.from_numpy(rois),
+                         torch.from_numpy(valid), 7, 1.0 / 16.0).numpy()
+    exp = np.asarray(jax_roi_align_matmul(jnp.asarray(fmap), jnp.asarray(rois),
+                                          jnp.asarray(valid), 7, 1.0 / 16.0))
+    np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5)
+    if case == "wholly_outside":
+        assert not got[0, 0].any()
+    else:
+        assert np.abs(got[0, 0]).sum() > 0
+    if case == "sample_on_last_cell":   # the corner sample is the corner cell
+        np.testing.assert_allclose(got[0, 0, 6, 6], fmap[0, 18, 22], rtol=1e-6)

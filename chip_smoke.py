@@ -10,8 +10,10 @@ script exits non-zero without a result line):
   2. build    - nvcc builds the three kernels from neural_motifs_tpu_torch/csrc.
   3. kernels  - K1 RoIAlign, K2 per-class NMS, K3 greedy NMS against their
                 plain PyTorch versions on the card at the main path's
-                shapes (K1 in f32 and bf16 at R = 1000, 64, 512; K3 on
-                uniform random and on RPN-like clustered boxes), with the
+                shapes (K1 in f32 and bf16 at R = 1000, 64, 512; K2 on
+                random lanes and on the request's full lanes of clustered
+                boxes; K3 on uniform random and on RPN-like clustered
+                boxes), with the
                 time of a call of each (CUDA events, the median of 10 calls
                 each synced; and over 10 calls in a row, the host enqueueing
                 ahead), the kernels' device time from torch.profiler (K3 split into
@@ -341,28 +343,42 @@ def check_kernels(dev, gen) -> dict:
     print(f"K1 roi_align_fwd: f32 max|err| {err:.3e} (R=1000/64/512, tol 1e-4), "
           f"bf16 within rtol 2e-2 at each R", flush=True)
 
-    # K2: per-class candidates [4, 151, 256] at 0.3
+    # K2: per-class candidates [4, 151, 256] at 0.3, on random lanes of 3 to
+    # 256 valid candidates and on the request's full lanes of clustered
+    # boxes (RPN-like proposals drawn per class, from their own generator,
+    # so that the K3 data below do not move)
     boxes = rand_boxes(gen, (BATCH, 151, 256), 592, dev)
     n_ok = torch.randint(3, 257, (BATCH, 151, 1), generator=gen, device=dev)
-    valid = torch.arange(256, device=dev) < n_ok
-    got = nms.perclass_nms_cuda(boxes, valid, 0.3)
-    exp = nms._perclass_nms_plain(boxes, valid, 0.3)
-    diff = (got != exp).sum().item()
-    require(diff == 0, f"K2 keep masks differ in {diff} places")
-    t_k = time_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
-    t_s = pipelined_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
-    t_p = time_ms(lambda: nms._perclass_nms_plain(boxes, valid, 0.3), reps=3)
-    dev_t = device_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3), ("perclass_nms",))
-    b_ms, b_by = nms_bound(BATCH * 151 * 256, 16 + 1 + 1, greedy_pairs(got, valid))
-    res["perclass_nms"] = dict(
-        max_abs_err=float(diff), ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms,
-        bound_by=b_by, share_of_bound=b_ms / t_k, device_ms=dev_t and dev_t["perclass_nms"],
-        library_ms=None, library_reason="no single PyTorch call computes greedy NMS")
-    print(f"K2 perclass_nms: keep identical ({int(got.sum())} kept); kernel "
-          f"{t_k:.4f} ms a synced call ({t_s:.4f} in a stream of calls, device "
-          f"{res['perclass_nms']['device_ms']}), plain "
-          f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}), share "
-          f"{b_ms / t_k:.3f}", flush=True)
+    gen_full = torch.Generator(device=dev).manual_seed(SEED + 4)
+    k2_cases = {
+        "random": (boxes, torch.arange(256, device=dev) < n_ok),
+        "full_lanes": (torch.stack([rpn_like_boxes(gen_full, dev, 256) for _ in range(151)], 1),
+                       torch.ones(BATCH, 151, 256, dtype=torch.bool, device=dev))}
+    k2 = {}
+    for kind, (boxes, valid) in k2_cases.items():
+        got = nms.perclass_nms_cuda(boxes, valid, 0.3)
+        exp = nms._perclass_nms_plain(boxes, valid, 0.3)
+        diff = (got != exp).sum().item()
+        require(diff == 0, f"K2 keep masks differ in {diff} places ({kind} lanes)")
+        kept = int(got.sum())
+        require(0 < kept < int(valid.sum()), f"K2 {kind}: {kept} kept, nothing suppressed")
+        t_k = time_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
+        t_s = pipelined_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3))
+        t_p = time_ms(lambda: nms._perclass_nms_plain(boxes, valid, 0.3), reps=3)
+        dev_t = device_ms(lambda: nms.perclass_nms_cuda(boxes, valid, 0.3), ("perclass_nms",))
+        pairs = greedy_pairs(got, valid)
+        b_ms, b_by = nms_bound(BATCH * 151 * 256, 16 + 1 + 1, pairs)
+        k2[kind] = dict(ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                        share_of_bound=b_ms / t_k, device_ms=dev_t and dev_t["perclass_nms"],
+                        kept=kept, iou_tests=pairs)
+        print(f"K2 perclass_nms {kind}: keep identical ({kept} kept); kernel {t_k:.4f} ms "
+              f"a synced call ({t_s:.4f} in a stream of calls, device "
+              f"{k2[kind]['device_ms'] if dev_t else 'not measured'}), plain {t_p:.3f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}, {pairs} IoU tests), share {b_ms / t_k:.4f}",
+              flush=True)
+    res["perclass_nms"] = dict(max_abs_err=0.0, **k2["random"], full_lanes=k2["full_lanes"],
+                               library_ms=None,
+                               library_reason="no single PyTorch call computes greedy NMS")
 
     # K3: the RPN's pre-NMS top 6000 per image at 0.7, on uniform random
     # boxes and on RPN-like clustered ones

@@ -24,9 +24,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <mutex>
 
 namespace {
+
+constexpr int kBits = 64;  // ranks a suppression word covers
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2,
                                           float y2) {
@@ -48,70 +51,226 @@ __device__ __forceinline__ float iou_from_inter(float inter, float area_a,
   return __fdiv_rn(inter, fmaxf(uni, 1e-8f));
 }
 
-__device__ __forceinline__ float iou_plus1(float ax1, float ay1, float ax2,
-                                           float ay2, float area_a, float bx1,
-                                           float by1, float bx2, float by2,
-                                           float area_b) {
-  return iou_from_inter(inter_plus1(ax1, ay1, ax2, ay2, bx1, by1, bx2, by2),
-                        area_a, area_b);
+// Whether box p (area pa) suppresses box q of area qa: IoU > t, the division
+// skipped where they do not meet (0 / x = 0).
+__device__ __forceinline__ bool suppresses(float4 p, float pa, float4 q, float qa,
+                                           float thresh, bool zero_hit) {
+  const float inter = inter_plus1(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w);
+  return inter == 0.f ? zero_hit : iou_from_inter(inter, pa, qa) > thresh;
 }
 
 // ---------------------------------------------------------------------------
-// K2 — per-class NMS (pallas_perclass_nms / _perclass_kernel): an exact
-// rank-sequential greedy pass over the K candidates of each (image, class)
-// lane, sorted by descending score.
+// K2 — per-class NMS, replacing pallas_perclass_nms / _perclass_kernel
+// (neural_motifs_tpu/ops/pallas_nms.py): exact greedy NMS over the K
+// candidates of each (image, class) lane, sorted by descending score.
 //
-// The TPU kernel vectorises one rank step over all C classes of an image
-// on the VPU and walks the K ranks in its grid body. Here one block owns
-// one lane (B*C = 604 blocks at the main path fill the 132 SMs), with one
-// thread per candidate: the lane's boxes and areas sit in shared memory,
-// and the block walks rank i = 0..K-1; if box i is still alive, every
-// thread j > i drops its own box when IoU(i, j) > t. A box's alive flag is
-// final before its own step (only lower ranks can kill it), so one pass is
-// exact greedy. Bound: the K dependent steps, each a few hundred cycles
-// of shared-memory work and one __syncthreads; no device-memory traffic
-// beyond loading the boxes once. Dead ranks are skipped without a barrier
-// (every thread reads the same settled flag).
+// What bounds it on this card: neither bytes (18 bytes a candidate, 2.8 MB
+// at [4, 151, 256]) nor the IoU tests' arithmetic (~20 M tests at most
+// there, ~5 us of f32 work over 132 SMs), but the greedy order inside a
+// lane (rank i's fate waits on every kept rank before it) and how fast one
+// SM, holding ~5 lanes, issues the tests. A walk that meets at a barrier
+// once per kept rank pays up to K dependent rounds a lane. The TPU kernel
+// vectorises one rank step over the C classes of an image; here a lane is
+// a block of four warps, and its walk goes by 64-rank chunks, as K3's scan
+// does, with two barriers a chunk:
+//   1. the chunk's upper-triangle suppression words, tested only between
+//      its ranks still alive (valid and not removed), into shared memory;
+//   2. every warp resolves the chunk by the fixpoint
+//      alive = base & ~OR(rows of alive ranks);
+//   3. the kept rows against the later ranks still alive, as items of a
+//      kept row and a 32-rank word, ORed into `removed` by shared atomics.
+// A test is the IoU expression in IEEE intrinsics up to the union, then
+// the sign of two FMAs (k2_hit), the division only where they cannot
+// decide. What sets the pace is how fast an SM issues those tests for the
+// 4-5 lanes (16-20 warps) it holds, not the barriers (PERF.md). The
+// boxes, their areas and the flags stay in shared memory (K = 2048 takes
+// 43 KB, under the 48 KB default), so nothing but the boxes and flags in
+// and the keep mask out touches device memory, and a chunk whose ranks are
+// all gone costs no barrier.
 // ---------------------------------------------------------------------------
 
-__global__ void perclass_nms_kernel(const float* __restrict__ boxes,
-                                    const uint8_t* __restrict__ valid,
-                                    uint8_t* __restrict__ keep, int K,
-                                    float thresh) {
-  extern __shared__ float smem[];
-  float* x1 = smem;
-  float* y1 = x1 + K;
-  float* x2 = y1 + K;
-  float* y2 = x2 + K;
-  float* ar = y2 + K;
-  int* alive = reinterpret_cast<int*>(ar + K);
+constexpr int kLaneThreads = 128;  // a lane's block: four warps
+constexpr int kLaneWarps = kLaneThreads / 32;  // each takes a slice of a tile
+constexpr int kLanesPerSM = 5;  // 604 lanes over 132 SMs in one wave
+
+// K2's test of IoU(p, q) > t without the division where the sign of an
+// FMA settles it. With uni = max(union, 1e-8) > 0 and s the float after t,
+// the f32 quotient inter / uni exceeds t if inter > s * uni, and cannot if
+// inter <= t * uni; fma(-x, uni, inter) is inter - x * uni rounded once, so
+// its sign is exact (for t in [2^-60, 2^60) no nonzero difference
+// underflows). A quotient in (t, s], whose rounding decides, or a NaN sets
+// `open`, and the caller then decides its tests by the IEEE division
+// (`suppresses`); so does every test for a t outside that range, for which
+// the host passes t1 = -inf and s = NaN.
+__device__ __forceinline__ bool k2_hit(float4 p, float pa, float4 q, float qa, float t1,
+                                       float s, bool& open) {
+  const float inter = inter_plus1(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w);
+  const float uni = fmaxf(__fsub_rn(__fadd_rn(pa, qa), inter), 1e-8f);
+  const bool hit = __fmaf_rn(-s, uni, inter) > 0.f;
+  open |= !hit && !(__fmaf_rn(-t1, uni, inter) <= 0.f);
+  return hit;
+}
+
+__device__ __forceinline__ unsigned long long chunk_word(const unsigned int* w32,
+                                                         int w) {
+  return ((unsigned long long)w32[2 * w + 1] << 32) | w32[2 * w];
+}
+
+__global__ void __launch_bounds__(kLaneThreads, kLanesPerSM)
+    perclass_nms_kernel(const float* __restrict__ boxes,
+                        const uint8_t* __restrict__ valid,
+                        uint8_t* __restrict__ keep, int K, float thresh, float t1,
+                        float t_next) {
+  const int W = (K + kBits - 1) / kBits;
+  extern __shared__ __align__(16) unsigned char k2_smem[];
+  // the boxes and areas padded to whole chunks, so that an item's word of
+  // column boxes lies inside them (a pad rank is never valid)
+  float4* box = reinterpret_cast<float4*>(k2_smem);                // [64W]
+  float* ar = reinterpret_cast<float*>(box + W * kBits);           // [64W]
+  // a slice's part of each tile row, by rank: bit c is column c
+  unsigned long long* tpart = reinterpret_cast<unsigned long long*>(ar + W * kBits);
+  unsigned int* vbits = reinterpret_cast<unsigned int*>(tpart + kLaneWarps * kBits);  // [2W]
+  unsigned int* removed = vbits + 2 * W;                                          // [2W]
+  unsigned char* ranks = reinterpret_cast<unsigned char*>(removed + 2 * W);  // [warps][64]
 
   const int64_t lane = blockIdx.x;
+  const int t = threadIdx.x;
+  const int l = t & 31;
+  const int warp = t >> 5;
   const float* bx = boxes + lane * K * 4;
   const uint8_t* vl = valid + lane * K;
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    x1[j] = bx[j * 4 + 0];
-    y1[j] = bx[j * 4 + 1];
-    x2[j] = bx[j * 4 + 2];
-    y2[j] = bx[j * 4 + 3];
-    ar[j] = box_area(x1[j], y1[j], x2[j], y2[j]);
-    alive[j] = vl[j] != 0;
+  uint8_t* kp = keep + lane * K;
+
+  for (int j = t; j < W * kBits; j += kLaneThreads) {
+    float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < K) b = make_float4(bx[j * 4 + 0], bx[j * 4 + 1], bx[j * 4 + 2], bx[j * 4 + 3]);
+    box[j] = b;
+    ar[j] = box_area(b.x, b.y, b.z, b.w);
+  }
+  // whole warps take each step (64W is a multiple of 32): full ballots
+  for (int j = t; j < W * kBits; j += kLaneThreads) {
+    const unsigned int v = __ballot_sync(0xffffffffu, j < K && vl[j]);
+    if (l == 0) {
+      vbits[j >> 5] = v;
+      removed[j >> 5] = 0u;
+    }
   }
   __syncthreads();
+  int v_end = 2 * W;  // one past the last word that holds a valid rank
+  while (v_end > 0 && vbits[v_end - 1] == 0u) --v_end;
 
-  for (int i = 0; i < K; ++i) {
-    if (!alive[i]) continue;  // uniform: flag i is settled and shared
-    const float ix1 = x1[i], iy1 = y1[i], ix2 = x2[i], iy2 = y2[i], ia = ar[i];
-    for (int j = threadIdx.x; j < K; j += blockDim.x) {
-      if (j > i && iou_plus1(ix1, iy1, ix2, iy2, ia, x1[j], y1[j], x2[j],
-                             y2[j], ar[j]) > thresh) {
-        alive[j] = 0;
+  const bool zero_hit = 0.f > thresh;
+  for (int w = 0; w < W; ++w) {
+    const int c0 = w * kBits;
+    const int n = min(K - c0, kBits);
+    // the chunk's ranks alive at its start; the same in every thread
+    const unsigned long long base = chunk_word(vbits, w) & ~chunk_word(removed, w);
+    if (base == 0ULL) {
+      for (int r = t; r < n; r += kLaneThreads) kp[c0 + r] = 0;
+      continue;
+    }
+    const float4* cb = box + c0;
+    const float* ca = ar + c0;
+
+    // 1. the tile, between the chunk's alive ranks only. They are indexed
+    // a = 0..nb-1 (each warp writes its own list); lane x tests row x
+    // against the columns above it, then row nb-1-x against the columns
+    // above that, nb - 1 tests in all, and warp w takes the w-th slice of
+    // them. The tests are independent (the compiler can overlap them); an
+    // open one sends the thread's tests to the division.
+    unsigned char* list = ranks + warp * kBits;
+    if ((base >> l) & 1ULL) list[__popcll(base & ((1ULL << l) - 1ULL))] = (unsigned char)l;
+    if ((base >> (l + 32)) & 1ULL)
+      list[__popcll(base & ((1ULL << (l + 32)) - 1ULL))] = (unsigned char)(l + 32);
+    __syncwarp();
+    const int nb = __popcll(base);
+    if (l < (nb + 1) / 2) {
+      const int x = l, y = nb - 1 - l;  // y == x: the middle row, twice
+      const int rx = list[x], ry = list[y];
+      const float4 px = cb[rx], py = cb[ry];
+      const float ax = ca[rx], ay = ca[ry];
+      const int k0 = warp * (nb - 1) / kLaneWarps, k1 = (warp + 1) * (nb - 1) / kLaneWarps;
+      unsigned long long bits_x = 0ULL, bits_y = 0ULL;  // bit c: column c of the row
+      bool open = false;
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        const bool first = k < y;  // row x, column x + 1 + k; else row y, column k + 1
+        const int rc = list[first ? x + 1 + k : k + 1];
+        const bool hit = k2_hit(first ? px : py, first ? ax : ay, cb[rc], ca[rc], t1, t_next, open);
+        bits_x |= (unsigned long long)(hit && first) << rc;
+        bits_y |= (unsigned long long)(hit && !first) << rc;
       }
+      if (open) {  // rare: these tests again, by the division
+        bits_x = bits_y = 0ULL;
+        for (int k = k0; k < k1; ++k) {
+          const bool first = k < y;
+          const int rc = list[first ? x + 1 + k : k + 1];
+          if (suppresses(first ? px : py, first ? ax : ay, cb[rc], ca[rc], thresh, zero_hit))
+            (first ? bits_x : bits_y) |= 1ULL << rc;
+        }
+      }
+      tpart[warp * kBits + rx] = rx == ry ? bits_x | bits_y : bits_x;
+      if (ry != rx) tpart[warp * kBits + ry] = bits_y;
     }
     __syncthreads();
-  }
-  for (int j = threadIdx.x; j < K; j += blockDim.x) {
-    keep[lane * K + j] = (uint8_t)alive[j];
+
+    // 2. resolve in every warp (no barrier hands the answer on), lane l
+    // holding rows l and l + 32: alive = base & ~OR(rows of alive ranks)
+    // until it stops changing. A row only sets bits above its own rank, so
+    // one more rank is final each round and the fixpoint is the greedy
+    // answer; a row outside `base` is stale, and never alive.
+    unsigned long long lo_row = 0ULL, hi_row = 0ULL;
+#pragma unroll
+    for (int q = 0; q < kLaneWarps; ++q) {
+      lo_row |= tpart[q * kBits + l];
+      hi_row |= tpart[q * kBits + l + 32];
+    }
+    unsigned long long alive = base;
+    for (int round = 0; round <= kBits; ++round) {
+      const unsigned long long mine = (((alive >> l) & 1ULL) ? lo_row : 0ULL) |
+                                      (((alive >> (l + 32)) & 1ULL) ? hi_row : 0ULL);
+      const unsigned long long sup =
+          ((unsigned long long)__reduce_or_sync(0xffffffffu, (unsigned int)(mine >> 32))
+           << 32) |
+          __reduce_or_sync(0xffffffffu, (unsigned int)mine);
+      const unsigned long long next = base & ~sup;
+      if (next == alive) break;
+      alive = next;
+    }
+    for (int r = t; r < n; r += kLaneThreads) kp[c0 + r] = (uint8_t)((alive >> r) & 1ULL);
+
+    // 3. the kept rows against the later ranks still alive: one item is a
+    // kept row and a later 32-rank word that holds a live rank, 32
+    // independent tests; the items of a warp share their word where they
+    // can (the column boxes are then one broadcast), and a hit word is
+    // ORed into `removed` by a shared-memory atomic
+    const unsigned int kept_lo = (unsigned int)alive, kept_hi = (unsigned int)(alive >> 32);
+    const int n_lo = __popc(kept_lo);
+    const int n_kept = n_lo + __popc(kept_hi);
+    const int v0 = 2 * (w + 1);  // the first later word
+    for (int it = t; it < n_kept * (v_end - v0); it += kLaneThreads) {
+      const int v = v0 + it / n_kept;
+      const int r = it % n_kept;  // the r-th kept row of the chunk
+      const unsigned int live = vbits[v] & ~*(volatile unsigned int*)&removed[v];
+      if (live == 0u) continue;
+      const int i = r < n_lo ? __fns(kept_lo, 0, r + 1) : 32 + __fns(kept_hi, 0, r - n_lo + 1);
+      const float4 p = cb[i];
+      const float pa = ca[i];
+      const float4* qb = box + v * 32;
+      const float* qa = ar + v * 32;
+      unsigned int hits = 0u;
+      bool open = false;
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        hits |= (unsigned int)k2_hit(p, pa, qb[c], qa[c], t1, t_next, open) << c;
+      if (open) {  // rare: these tests again, by the division
+        hits = 0u;
+        for (int c = 0; c < 32; ++c)
+          hits |= (unsigned int)suppresses(p, pa, qb[c], qa[c], thresh, zero_hit) << c;
+      }
+      if (hits & live) atomicOr(&removed[v], hits & live);
+    }
+    __syncthreads();
   }
 }
 
@@ -144,7 +303,6 @@ __global__ void perclass_nms_kernel(const float* __restrict__ boxes,
 // scatters the keep mask back to the original order).
 // ---------------------------------------------------------------------------
 
-constexpr int kBits = 64;
 constexpr int kMaskThreads = 128;
 constexpr int kScanThreads = 128;  // also the widest tile piece, in words
 
@@ -191,17 +349,12 @@ __global__ void __launch_bounds__(kMaskThreads)
   const bool zero_hit = 0.f > thresh;  // a pair that does not intersect
   unsigned int bits = 0u;
   if (r < rows) {
-    const float ax1 = a.x, ay1 = a.y, ax2 = a.z, ay2 = a.w;
-    const float aa = box_area(ax1, ay1, ax2, ay2);
+    const float aa = box_area(a.x, a.y, a.z, a.w);
     // all 32 columns, then keep those past the diagonal and inside N
     // (the others read stale shared memory, harmlessly)
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
-      const float4 q = cbox[k0 + c];
-      const float inter = inter_plus1(ax1, ay1, ax2, ay2, q.x, q.y, q.z, q.w);
-      const bool hit = inter == 0.f
-                           ? zero_hit
-                           : iou_from_inter(inter, aa, car[k0 + c]) > thresh;
+      const bool hit = suppresses(a, aa, cbox[k0 + c], car[k0 + c], thresh, zero_hit);
       bits |= (unsigned int)hit << c;
     }
     bits &= bit_range((cb == rb ? r + 1 : 0) - k0, cols - k0);
@@ -415,12 +568,19 @@ extern "C" int nm_perclass_nms(const void* boxes, const void* valid,
                                void* keep, int lanes, int K, float thresh,
                                void* stream) {
   if (lanes == 0 || K == 0) return 0;
-  const int threads = K >= 1024 ? 1024 : ((K + 31) / 32) * 32;
-  const size_t smem = (size_t)K * (5 * sizeof(float) + sizeof(int));
-  perclass_nms_kernel<<<lanes, threads, smem,
+  const int W = (K + kBits - 1) / kBits;
+  const size_t smem = (size_t)W * kBits * (sizeof(float4) + sizeof(float)) +
+                      kLaneWarps * kBits * (sizeof(unsigned long long) + 1) +
+                      (size_t)4 * W * sizeof(unsigned int);
+  // the bounds of the division-free test (k2_hit): t and the float after
+  // it, for t in [2^-60, 2^60); -inf and NaN (every test divides) otherwise
+  const bool covered = thresh >= 0x1p-60f && thresh < 0x1p60f;
+  const float t1 = covered ? thresh : -INFINITY;
+  const float t_next = covered ? std::nextafter(thresh, INFINITY) : NAN;
+  perclass_nms_kernel<<<lanes, kLaneThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), K, thresh);
+      static_cast<uint8_t*>(keep), K, thresh, t1, t_next);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,11 @@ Two functions carry a kernel each:
     upper triangle, then a scan that resolves 64-box chunks in shared
     memory; replacing the Pallas `pallas_greedy_nms`); CPU tensors to
     `_greedy_nms_plain`, the tiled fixpoint of the JAX `greedy_nms_mask`.
-  * `perclass_nms` — the rank-sequential pass over score-sorted per-class
-    candidates. CUDA tensors go to `perclass_nms_cuda` (replacing the
-    Pallas `pallas_perclass_nms`); CPU tensors to `_perclass_nms_plain`.
+  * `perclass_nms` — exact greedy NMS over score-sorted per-class
+    candidates. CUDA tensors go to `perclass_nms_cuda` (csrc/nms.cu: one
+    block a lane walks 64-rank chunks in shared memory, replacing the
+    Pallas `pallas_perclass_nms`); CPU tensors to `_perclass_nms_plain`,
+    the rank-sequential pass of the Pallas kernel.
 
 Ties: `lax.top_k` puts the lower index first and `jnp.argsort` is stable,
 so every ranking here is `torch.sort(..., descending=True, stable=True)`.
@@ -25,7 +27,7 @@ from neural_motifs_tpu_torch.ops.boxes import area, bbox_overlaps
 Tensor = torch.Tensor
 
 NEG_INF = -1e10
-_MAX_PERCLASS_K = 2048     # shared memory of one block: 24 bytes a candidate
+_MAX_PERCLASS_K = 2048     # a lane's shared memory: 20 bytes a candidate, 43 KB
 _MAX_GREEDY_N = 43000      # the mask scratch is N^2/8 bytes a lane (231 MB here)
 
 

@@ -120,6 +120,27 @@ def test_perclass_nms_kernel_matches_plain(np_rng, cuda):
 
 
 @pytest.mark.gpu
+def test_perclass_nms_kernel_division_band(np_rng, cuda):
+    """K2 on pairs whose IoU the FMA signs cannot decide (its exact
+    quotient within one f32 ulp above t = 0.3): the IEEE division decides,
+    in the tile (inner box at rank 1) and in the later-chunk test (rank
+    64), some rounding up (suppressed) and some down (kept)."""
+    outer, inner, up = band_pairs(np_rng, 400_000)
+    up = up[:48]
+    m = len(up)
+    assert m == 48 and up.any() and not up.all()
+    # 63 far-apart 5x5 fillers, none meeting another box
+    fill = np.stack([3000.0 + 20 * np.arange(63), np.zeros(63), 3004.0 + 20 * np.arange(63),
+                     np.full(63, 4.0)], 1).astype(np.float32)
+    tile = np.stack([np.concatenate([outer[i:i + 1], inner[i:i + 1], fill]) for i in range(m)])
+    later = np.stack([np.concatenate([outer[i:i + 1], fill, inner[i:i + 1]]) for i in range(m)])
+    boxes = T(np.stack([tile, later])).to(cuda)                  # [2, m, 65, 4]
+    valid = torch.ones(2, m, 65, dtype=torch.bool, device=cuda)
+    got = assert_perclass_kernel_matches(boxes, valid).cpu()
+    assert torch.equal(got[0, :, 1], T(~up)) and torch.equal(got[1, :, 64], T(~up))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [6000, 100])
 def test_greedy_nms_kernel_matches_plain(np_rng, cuda, n):
     """K3 at the RPN's [4, 6000] (and one partial 64-box word), threshold
@@ -147,14 +168,85 @@ def anchor_like_boxes(rng, lanes, n, im=592):
     return clip_boxes(boxes, size, size)
 
 
-def at_threshold_boxes(rng, n):
-    """n/2 nested pairs a 10x10 box holds: 10x7 (IoU exactly 0.7 in f32),
-    8x9 (0.72) or 9x7 (0.63), spread so that pairs rarely meet."""
+def at_threshold_boxes(rng, n, sizes=((10, 7), (8, 9), (9, 7))):
+    """n/2 nested pairs a 10x10 box holds, the inner box of one of `sizes`:
+    by default 10x7 (IoU exactly 0.7 in f32), 8x9 (0.72) or 9x7 (0.63),
+    spread so that pairs rarely meet."""
     xy = rng.uniform(0, 400, (n // 2, 2)).astype(np.float32).round()
     a = np.concatenate([xy, xy + 9], 1)
-    wh = np.array([[10, 7], [8, 9], [9, 7]], np.float32)[rng.randint(0, 3, n // 2)]
+    wh = np.array(sizes, np.float32)[rng.randint(0, len(sizes), n // 2)]
     b = np.concatenate([xy, xy + wh - 1], 1)
     return np.concatenate([a, b], 0)
+
+
+def assert_perclass_kernel_matches(boxes, valid, thresh=0.3):
+    """K2 on the card == the plain rank-sequential pass on the CPU, in one
+    launch."""
+    before = nms.perclass_nms_cuda.launches
+    got = nms.perclass_nms(boxes, valid, thresh)
+    torch.cuda.synchronize()
+    assert nms.perclass_nms_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), nms._perclass_nms_plain(boxes.cpu(), valid.cpu(), thresh))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 256, 2048])
+def test_perclass_nms_kernel_chunk_edges(np_rng, cuda, k):
+    """K2 at every edge of its 64-rank chunks, up to _MAX_PERCLASS_K, with
+    valid flags with holes and one all-invalid lane (which keeps nothing)."""
+    boxes = T(rand_boxes(np_rng, (2, 3, k), 592)).to(cuda)
+    valid = T(np_rng.uniform(0, 1, (2, 3, k)) < 0.8).to(cuda)
+    valid[1, 2] = False
+    got = assert_perclass_kernel_matches(boxes, valid)
+    assert not got[1, 2].any()
+
+
+@pytest.mark.gpu
+def test_perclass_nms_kernel_full_clustered_lanes(np_rng, cuda):
+    """K2 on the request's lane shape [4, 151, 256], every candidate valid,
+    RPN-like clustered boxes: identical keep masks, some boxes suppressed."""
+    boxes = anchor_like_boxes(np_rng, 4 * 151, 256).reshape(4, 151, 256, 4).to(cuda)
+    valid = torch.ones(4, 151, 256, dtype=torch.bool, device=cuda)
+    got = assert_perclass_kernel_matches(boxes, valid)
+    assert 0 < int(got.sum()) < int(valid.sum()), "clustered boxes must suppress"
+
+
+@pytest.mark.gpu
+def test_perclass_nms_kernel_at_threshold(np_rng, cuda):
+    """K2 on nested pairs whose f32 IoU is exactly 0.3 (10x3 in 10x10: kept,
+    the test is strictly greater), beside 0.4 (10x4) and 0.2 (10x2) pairs."""
+    xy = np.stack(np.meshgrid(np.arange(10), np.arange(10)), -1).reshape(100, 2) * 20.0
+    exact = np.concatenate([np.concatenate([xy, xy + 9], 1),     # 10x10 on a grid:
+                            np.concatenate([xy, xy + [9, 2]], 1)])  # no two pairs meet
+    mixed = [at_threshold_boxes(np_rng, 200, ((10, 3), (10, 4), (10, 2))) for _ in range(3)]
+    boxes = np.stack([b[np_rng.permutation(200)] for b in [exact] + mixed]).astype(np.float32)
+    boxes = T(boxes).reshape(1, 4, 200, 4).to(cuda)
+    valid = torch.ones(1, 4, 200, dtype=torch.bool, device=cuda)
+    got = assert_perclass_kernel_matches(boxes, valid)
+    assert got[0, 0].all() and not got[0, 1:].all()
+
+
+def band_pairs(rng, n, t=0.3):
+    """Nested box pairs (outer, inner) from n candidates whose exact f32
+    quotient inter / union lies in (t, the float after t]: the pairs K2
+    decides by the IEEE division, as `open` (csrc/nms.cu k2_hit). Returns
+    (outer [m, 4], inner [m, 4], rounds_up [m]): whether the f32 IoU
+    rounds above t (the inner box is then suppressed)."""
+    f = np.float32
+    x2 = (f(900) + rng.randint(0, 2 ** 20, n).astype(f) * f(2.0 ** -14)).astype(f)
+    y2 = (f(900) + rng.randint(0, 2 ** 20, n).astype(f) * f(2.0 ** -14)).astype(f)
+    iy2 = (f(t) * (y2 + 1) - 1 + rng.randint(-64, 64, n).astype(f) * f(2.0 ** -15)).astype(f)
+    zero = np.zeros(n, f)
+    outer = np.stack([zero, zero, x2, y2], 1)
+    inner = np.stack([zero, zero, x2, iy2], 1)
+    area_o = (x2 + f(1)) * (y2 + f(1))
+    inter = (x2 + f(1)) * (iy2 + f(1))     # the inner box is the intersection
+    uni = np.maximum((area_o + inter) - inter, f(1e-8))
+    s = np.nextafter(f(t), f(np.inf))
+    exact = lambda x: inter.astype(np.float64) - np.float64(x) * uni.astype(np.float64)
+    band = (exact(f(t)) > 0) & ~(exact(s) > 0)
+    return outer[band], inner[band], ((inter / uni) > f(t))[band]
 
 
 def assert_greedy_kernel_matches(boxes, scores, valid, thresh):

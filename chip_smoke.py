@@ -7,12 +7,19 @@ script exits non-zero without a result line):
 
   1. device   - the card's name and power limit (nvidia-smi), torch/CUDA
                 versions; refuses to run without a CUDA device.
-  2. build    - nvcc builds the kernels from neural_motifs_tpu_torch/csrc.
+  2. build    - nvcc builds the kernels from neural_motifs_tpu_torch/csrc
+                (one process a source, all at once); cuobjdump shows what
+                sm_90a makes of a shared-memory f32 and u64 atomicAdd and the
+                atomics of K1's backward's shared-memory kernel.
   3. kernels  - K1 RoIAlign and its backward, K2 per-class NMS, K3 greedy
                 NMS against their plain PyTorch versions on the card at the
                 main paths' shapes (K1 in f32 and bf16 at R = 1000, 64, 512;
                 K1's backward in f32 and bf16 at detector training's
-                [6, 37, 37, 512] map and 256 RoIs an image; K2 on
+                [6, 37, 37, 512] map and 256 RoIs an image, both the
+                shared-memory kernel the dispatch takes and the scatter path
+                forced, each timed, the former also at cs = 8, 16 and 32, and
+                the scatter path on a [1, 128, 128, 64] map too large for
+                the former; K2 on
                 random lanes and on the request's full lanes of clustered
                 boxes; K3 on uniform random and on RPN-like clustered
                 boxes, on the RPN's training budget [6, 12000] at 0.7, on
@@ -119,7 +126,8 @@ script exits non-zero without a result line):
                 the -save_dir checkpoint restored into a fresh model,
                 optimizer, schedule, generator and loader bit for bit; then
                 a synced split of one step and the kernels' device time of
-                one step.
+                one step (K1's backward the shared-memory kernel, no scatter
+                or cast launch), and K1's backward alone on that step's RoIs.
  17. published weights and proposals - first phase 6 for a reference
                 checkpoint: a small reference vgrel .tar (phase 6's widths)
                 through eval_rels -ckpt on the CPU and on the card in sgdet
@@ -149,6 +157,7 @@ phase 17's sgdet eval); the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import io
@@ -157,6 +166,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -320,28 +330,32 @@ def pipelined_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, names: tuple, reps: int = 10) -> dict | None:
+def device_ms(fn, names: tuple, reps: int = 10, tries: int = 2) -> dict | None:
     """Device time per call from torch.profiler's key_averages(): summed
     over the kernels whose names hold each of `names`, and over every
-    kernel of the call ("all"); None where the profiler shows no device
-    time."""
+    kernel of the call ("all"); profiled again where a profile shows no
+    device time (deep into a run it sometimes records none), None where
+    none of `tries` does."""
     fn()
     torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names + ("all",), 0.0)
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        out["all"] += us / 1e3 / reps
-        for n in names:
-            if n in evt.key:
-                out[n] += us / 1e3 / reps
-    return out if out["all"] else None
+    for _ in range(tries):
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names + ("all",), 0.0)
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            out["all"] += us / 1e3 / reps
+            for n in names:
+                if n in evt.key:
+                    out[n] += us / 1e3 / reps
+        if out["all"]:
+            return out
+    return None
 
 
 # The published peaks of one H100 SXM:
@@ -457,55 +471,189 @@ def det_train_rois(gen, dev, b: int = 6, n_props: int = 2000, max_gt: int = 12):
     return det.rois, det.valid
 
 
+def bwd_times(call, names: tuple, b_ms: float) -> dict:
+    """One path of K1's backward: a synced call, a call in a stream of
+    calls, the device time of the kernels named and of every kernel of the
+    call (the scatter path's zero-fill included), and the share of the
+    bound on each."""
+    t_k, t_s = time_ms(call), pipelined_ms(call)
+    dev_t = device_ms(call, names)
+    return dict(ms=t_k, pipelined_ms=t_s, share_of_bound=b_ms / t_k,
+                device_ms=dev_t and sum(dev_t[n] for n in names),
+                kernels_ms=dev_t and {n: dev_t[n] for n in names},
+                call_device_ms=dev_t and dev_t["all"],
+                device_share_of_bound=dev_t and b_ms / dev_t["all"])
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+# Shared-memory atomic adds on f32 and u64, compiled alone: what sm_90a
+# makes of them (phase 2)
+ATOMIC_PROBE_CU = r"""
+__global__ void probe_f32(float* o, float v) {
+  __shared__ float s[64];
+  s[threadIdx.x % 64] = 0.f;
+  __syncthreads();
+  atomicAdd(s + (threadIdx.x * 7) % 64, v);
+  __syncthreads();
+  o[threadIdx.x] = s[threadIdx.x % 64];
+}
+__global__ void probe_u64(unsigned long long* o, unsigned long long v) {
+  __shared__ unsigned long long s[64];
+  s[threadIdx.x % 64] = 0;
+  __syncthreads();
+  atomicAdd(s + (threadIdx.x * 7) % 64, v);
+  __syncthreads();
+  o[threadIdx.x] = s[threadIdx.x % 64];
+}
+"""
+
+
+def sass_functions(binary) -> dict:
+    """The atomic instructions cuobjdump --dump-sass finds in each function
+    of a built binary, by (mangled) name."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_cuda._find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(binary)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = re.findall(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDS)\.[\w.]+)", fn)
+        out[fn.split(None, 1)[0]] = dict(collections.Counter(ops))
+    return out
+
+
+def sass_atomics(so) -> str:
+    """What sm_90a makes of a shared-memory f32 and u64 atomicAdd (a native
+    add, or a compare-and-swap loop: ATOMS.CAST.SPIN), and the atomic
+    instructions of K1's backward's shared-memory kernel in the built
+    library (its locks' integer compare-and-swap and exchange)."""
+    found = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+            with open(src, "w") as f:
+                f.write(ATOMIC_PROBE_CU)
+            subprocess.run([_cuda._find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                            "-cubin", "-o", cubin, src], capture_output=True, check=True)
+            for name, ops in sass_functions(cubin).items():
+                kind = "f32" if "probe_f32" in name else "u64"
+                found.append(f"shared {kind} atomicAdd -> {ops}")
+        for name, ops in sass_functions(so).items():
+            if "roi_align_bwd_smem_kernel" in name:
+                types = re.search(r"roi_align_bwd_smem_kernelI(.*?)EEv", name)
+                found.append(f"roi_align_bwd_smem_kernel<{types.group(1) if types else name}> "
+                             f"-> {ops}")
+    except (OSError, subprocess.CalledProcessError) as e:
+        return f"not read ({e})"
+    return "; ".join(found)
+
+
+def check_roi_align_bwd_large(dev, gen) -> dict:
+    """A [1, 128, 128, 64] map, whose cs = 8 accumulator does not fit in
+    shared memory: the dispatch takes the scatter path, which matches the
+    plain version (f32 within 1e-5, bf16 within rtol 1e-2 + 1e-3 of the
+    largest magnitude)."""
+    shape = (1, 128, 128, 64)
+    require(ra._bwd_slice(128, 128, 7) == 0,
+            "K1 backward: a 128x128 map must take the scatter path")
+    fmap = torch.randn(shape, generator=gen, device=dev)
+    rois = rand_boxes(gen, (1, 100), 2048, dev) - 100.0
+    valid = torch.rand(1, 100, generator=gen, device=dev) < 0.9
+    g = torch.randn(1, 100, 7, 7, 64, generator=gen, device=dev)
+    exp = ra._roi_align_bwd_plain(g, fmap, rois, valid, 1 / 16)
+    scale = exp.abs().max().item()
+    got = ra.roi_align_bwd_cuda(g, rois, valid, shape, torch.float32, 1 / 16)
+    err = (got - exp).abs().max().item()
+    require(scale > 0 and err <= 1e-5 * scale,
+            f"K1 backward 128x128 f32 max abs error {err} > 1e-5 x {scale}")
+    g16 = g.bfloat16()
+    exp16 = ra._roi_align_bwd_plain(g16.float(), fmap, rois, valid, 1 / 16)
+    got16 = ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16)
+    torch.testing.assert_close(got16.float(), exp16, rtol=1e-2,
+                               atol=1e-3 * exp16.abs().max().item())
+    print(f"K1 roi_align_bwd large map {list(shape)} R=100: the scatter path, f32 "
+          f"max|err| {err:.3e} ({err / scale:.2e} of the largest, tol 1e-5), bf16 within "
+          f"rtol 1e-2", flush=True)
+    return dict(shape=list(shape), path="scatter", max_abs_err=err,
+                max_abs_err_rel=err / scale)
+
+
 def check_roi_align_bwd(dev, gen) -> dict:
     """K1's backward at detector training's shape: a [6, 37, 37, 512] map,
-    256 RoIs an image drawn as a training step draws them (det_train_rois),
-    against the plain version (autograd of the separable form in f32 on the
-    same values): f32 within 1e-5 of the largest magnitude (atomics sum in
-    another order), bf16 within rtol 1e-2 + 1e-3 of it (one rounding of
-    the f32 sums); then the bf16 call's times, bound and yardstick."""
+    256 RoIs an image drawn as a training step draws them (det_train_rois).
+    Both paths, the shared-memory kernel the dispatch takes and the scatter
+    path forced (`_slice=0`), against the plain version (autograd of the
+    separable form in f32 on the same values): f32 within 1e-5 of the
+    largest magnitude (atomics sum in another order), bf16 within rtol 1e-2
+    + 1e-3 of it (one rounding of the f32 sums); then each path's times on
+    the bf16 call, bound and share, beside the plain version and the
+    yardstick; the shared-memory kernel at cs = 8, 16 and 32; a map too
+    large for it (the scatter path)."""
     b, r, shape = 6, 256, (6, 37, 37, 512)
     fmap = torch.randn(shape, generator=gen, device=dev)
     rois, valid = det_train_rois(gen, dev, b)
     require(rois.shape == (b, r, 4) and bool(valid.all()),
             f"K1 backward: the sample is {tuple(rois.shape)}, {int(valid.sum())} valid")
+    cs = ra._bwd_slice(37, 37, 7)
+    require(cs > 0,
+            "K1 backward: the training shape must take the shared-memory kernel")
     g = torch.randn(b, r, 7, 7, 512, generator=gen, device=dev)
     exp = ra._roi_align_bwd_plain(g, fmap, rois, valid, 1 / 16)
-    got = ra.roi_align_bwd_cuda(g, rois, valid, shape, torch.float32, 1 / 16)
     scale = exp.abs().max().item()
-    err = (got - exp).abs().max().item()
-    require(scale > 0 and err <= 1e-5 * scale,
-            f"K1 backward f32 max abs error {err} > 1e-5 x {scale}")
     g16, f16 = g.bfloat16(), fmap.bfloat16()
     exp16 = ra._roi_align_bwd_plain(g16.float(), fmap, rois, valid, 1 / 16)
-    got16 = ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16)
-    torch.testing.assert_close(got16.float(), exp16, rtol=1e-2,
-                               atol=1e-3 * exp16.abs().max().item())
+    errs = {}
+    for path, sl in (("kernel", None), ("scatter", 0)):
+        got = ra.roi_align_bwd_cuda(g, rois, valid, shape, torch.float32, 1 / 16, _slice=sl)
+        errs[path] = (got - exp).abs().max().item()
+        require(scale > 0 and errs[path] <= 1e-5 * scale,
+                f"K1 backward ({path}) f32 max abs error {errs[path]} > 1e-5 x {scale}")
+        got16 = ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16,
+                                      _slice=sl)
+        torch.testing.assert_close(got16.float(), exp16, rtol=1e-2,
+                                   atol=1e-3 * exp16.abs().max().item())
     del exp, got, exp16, got16
 
-    def call():
-        return ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16)
+    def call(sl):
+        return lambda: ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16,
+                                             1 / 16, _slice=sl)
 
-    t_k, t_s = time_ms(call), pipelined_ms(call)
-    t_p = time_ms(lambda: ra._roi_align_bwd_plain(g16, f16, rois, valid, 1 / 16), reps=3)
-    dev_t = device_ms(call, ("roi_align_bwd", "cast_bf16"))
-    lib = time_ms(yardstick_grid_sample_bwd(f16, rois, 7, 1 / 16))
     b_ms, b_by = roi_align_bwd_bound(b, 37, 37, 512, r, 7, 2)
-    out = dict(shape=[b, r, 37, 37, 512], max_abs_err=err, max_abs_err_rel=err / scale,
-               ms=t_k, pipelined_ms=t_s, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-               share_of_bound=b_ms / t_k, library_ms=lib,
-               device_ms=dev_t and dev_t["roi_align_bwd"] + dev_t["cast_bf16"],
-               scatter_ms=dev_t and dev_t["roi_align_bwd"],
-               cast_ms=dev_t and dev_t["cast_bf16"], call_device_ms=dev_t and dev_t["all"])
-    print(f"K1 roi_align_bwd bf16 [6, 37, 37, 512] R=256: f32 max|err| {err:.3e} "
-          f"({err / scale:.2e} of the largest, tol 1e-5), bf16 within rtol 1e-2; kernel "
-          f"{t_k:.4f} ms a synced call ({t_s:.4f} in a stream of calls; device: scatter "
-          f"{out['scatter_ms'] if dev_t else 'not measured'}, cast "
-          f"{out['cast_ms'] if dev_t else 'not measured'}, every kernel of the call "
-          f"{out['call_device_ms'] if dev_t else 'not measured'} ms), plain {t_p:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), share of bound {b_ms / t_k:.3f}, grid_sample "
-          f"backward {lib:.4f} ms", flush=True)
-    return out
+    kern = bwd_times(call(None), ("roi_align_bwd_smem",), b_ms)
+    scat = bwd_times(call(0), ("roi_align_bwd_kernel", "cast_bf16"), b_ms)
+    slices = {w: bwd_times(call(w), ("roi_align_bwd_smem",), b_ms) for w in (8, 16, 32)}
+    t_p = time_ms(lambda: ra._roi_align_bwd_plain(g16, f16, rois, valid, 1 / 16), reps=3)
+    lib = time_ms(yardstick_grid_sample_bwd(f16, rois, 7, 1 / 16))
+    head = "K1 roi_align_bwd bf16 [6, 37, 37, 512] R=256"
+    for label, err, t in ((f"shared-memory kernel, cs={cs}", errs["kernel"], kern),
+                          ("scatter path", errs["scatter"], scat)):
+        parts = ("not measured" if t["kernels_ms"] is None else
+                 ", ".join(f"{n} {v:.4f}" for n, v in t["kernels_ms"].items()))
+        print(f"{head} {label}: f32 max|err| {err:.3e} ({err / scale:.2e} of the largest, "
+              f"tol 1e-5), bf16 within rtol 1e-2; {t['ms']:.4f} ms a synced call "
+              f"({t['pipelined_ms']:.4f} in a stream of calls; device: {parts}, every "
+              f"kernel of the call {fmt_ms(t['call_device_ms'])} ms); bound {b_ms:.4f} ms "
+              f"({b_by}), share of bound {t['share_of_bound']:.3f} on the call, "
+              f"{fmt_ms(t['device_share_of_bound'])} on device time", flush=True)
+    print(f"{head}: plain {t_p:.3f} ms, grid_sample backward {lib:.4f} ms; the slice "
+          f"width at the training shape: "
+          + ", ".join(f"cs={w} {t['ms']:.4f} ms a synced call, device "
+                      f"{fmt_ms(t['call_device_ms'])}" for w, t in slices.items())
+          + f" (the dispatch takes cs={cs})", flush=True)
+    if kern["call_device_ms"] and scat["call_device_ms"]:
+        require(kern["call_device_ms"] < scat["call_device_ms"],
+                f"K1 backward: the shared-memory kernel's device time "
+                f"{kern['call_device_ms']} ms is not below the scatter path's "
+                f"{scat['call_device_ms']} ms")
+    large = check_roi_align_bwd_large(dev, gen)
+    return dict(shape=[b, r, 37, 37, 512], path=f"shared memory, cs={cs}",
+                max_abs_err=errs["kernel"], max_abs_err_rel=errs["kernel"] / scale,
+                plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=lib, **kern,
+                scatter=dict(max_abs_err=errs["scatter"], **scat),
+                slices={str(w): t for w, t in slices.items()}, large_map=large)
 
 
 def check_kernels(dev, gen) -> dict:
@@ -1046,13 +1194,21 @@ def check_detector_train(smi: str, dev) -> dict:
     step = make_train_step(res.model, make_optimizer(res.model, cfg.lr * 6),
                            detector_losses)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    dev_t = device_ms(lambda: step(kw, gen), ("roi_align_smem", "roi_align_bwd", "cast_bf16",
+    dev_t = device_ms(lambda: step(kw, gen), ("roi_align_smem", "roi_align_bwd_smem",
+                                              "roi_align_bwd_kernel", "cast_bf16",
                                               "nms_mask", "nms_scan", "perclass_nms"), reps=2)
     print("detector step device time: " + (
         "not measured" if dev_t is None else
         f"{dev_t['all']:.3f} ms of kernels a step, of which K1 {dev_t['roi_align_smem']:.3f}, "
-        f"K1 backward {dev_t['roi_align_bwd'] + dev_t['cast_bf16']:.3f}, K3 "
-        f"{dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms"), flush=True)
+        f"K1 backward {dev_t['roi_align_bwd_smem']:.4f} (the shared-memory kernel; the "
+        f"scatter kernel {dev_t['roi_align_bwd_kernel']:.4f}, cast "
+        f"{dev_t['cast_bf16']:.4f}), K3 {dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms"),
+        flush=True)
+    if dev_t is not None:
+        require(dev_t["roi_align_bwd_smem"] > 0 and dev_t["roi_align_bwd_kernel"] == 0
+                and dev_t["cast_bf16"] == 0,
+                "detector step: K1's backward must run the shared-memory kernel, with no "
+                "scatter or cast launch for the bf16 map")
     # K1's backward alone on this step's own RoI sample, beside phase 3's
     # drawn sample (the kernels line's figures)
     out = step(kw, gen)[1]
@@ -1064,11 +1220,12 @@ def check_detector_train(smi: str, dev) -> dict:
         return ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16)
 
     t_own = time_ms(bwd)
-    own_dev = device_ms(bwd, ("roi_align_bwd", "cast_bf16"))
+    own_dev = device_ms(bwd, ("roi_align_bwd_smem",))
     print(f"K1 roi_align_bwd on one step's own RoI sample ({int(valid.sum())} valid of "
           f"{valid.numel()}): {t_own:.4f} ms a synced call, device "
           + ("not measured" if own_dev is None else
-             f"{own_dev['roi_align_bwd'] + own_dev['cast_bf16']:.4f} ms"), flush=True)
+             f"{own_dev['roi_align_bwd_smem']:.4f} ms (every kernel of the call "
+             f"{own_dev['all']:.4f})"), flush=True)
     del res, step, out
     torch.cuda.empty_cache()
     return {"detector train": train_l, "detector validation": val_l}
@@ -1924,6 +2081,7 @@ def main() -> None:
     so = _cuda.build()
     _cuda.lib()
     print(f"build: {time.time() - t0:.1f} s -> {so.name}", flush=True)
+    print(f"sass: {sass_atomics(so)}", flush=True)
 
     # phase 3 draws from its own generator, so that the main path's weights
     # and images do not depend on what phase 3 measures

@@ -41,23 +41,54 @@
 // feature map's type (f32 or bf16), rounded once.
 //
 // The backward (the map's gradient; the boxes get none, as in the Pallas
-// kernel's custom_vjp `_bwd` and the reference's roi_align_kernel.cu):
+// kernel's custom_vjp `_bwd` and the reference's roi_align_kernel.cu): each
+// upstream gradient value, times its tap weights, is added into the 4 cells
+// the forward read it from, with the forward's taps (an invalid RoI, or a
+// sample outside the map, adds nothing). Two paths, as for the forward:
 //
-//   roi_align_bwd_kernel: one block per (image, RoI, sample row), threads
-//     striding over (x sample, channel); each thread scatters its upstream
-//     gradient value, times the tap weights, into the 4 cells of a
-//     zero-filled f32 [B, H, W, C] buffer with atomicAdd, the same taps and
-//     weights as the forward (an invalid RoI, or a sample outside the map,
-//     adds nothing). Neighbouring threads add to neighbouring channels.
-//   cast_bf16_kernel: the f32 sums rounded once to the map's type (bf16
-//     maps only; an f32 map's gradient is the buffer itself).
+//   roi_align_bwd_smem_kernel (every map whose accumulator fits in shared
+//     memory: a 32-channel slice up to ~1 400 cells, the detector's 37x37
+//     maps; 16 channels up to ~3 300; 8 up to ~6 700): the forward's
+//     roi_align_smem_kernel turned around. One block per (image, channel
+//     slice) owns the [H, W, cs] slice of that image's gradient alone, as
+//     an f32 accumulator in shared memory; no two blocks write one address,
+//     so there are no device-memory atomics, no zero-fill of a device
+//     buffer and no cast pass: the block zeroes its accumulator, adds every
+//     RoI's gradient into it, and writes the slice once in the map's type
+//     (rounded once from f32, 16-byte stores where C and the pointer allow).
+//     Hopper has no native shared-memory f32 add: ptxas turns atomicAdd on
+//     a shared float into a compare-and-swap loop (ATOMS.CAST.SPIN,
+//     chip_smoke.py phase 2 shows it), and so is a 64-bit integer one. So
+//     the adds are plain loads, adds and stores, each (map row, band of 8
+//     cells) under a lock that a warp takes with integer compare-and-swap
+//     (native). A warp works one RoI at a time (the RoIs sorted by height,
+//     each warp a run of them, so that warps running at one time mostly
+//     touch different rows): its lanes compute the RoI's taps and distinct
+//     x cells, lane (cell, channel half) sums tx.w * g over the samples of
+//     its cell from a row of g staged in shared memory (16-byte loads, one
+//     row ahead), then adds ty.w times that sum to its cells of the row's
+//     two map rows. What bounds it at the training shape (6 images, 256
+//     RoIs, a [37, 37, 512] bf16 map): not the 77 MB stream of g (23 us at
+//     3.35 TB/s) but each warp's chain of dependent steps a sample row
+//     (shared-memory round trips, warp syncs, the lock): the block takes
+//     about as long as its longest run of RoIs, so the 32-channel slice (32
+//     warps, 8 RoIs each, one block an SM) beats 16 channels (16 warps, 16
+//     RoIs each, two blocks an SM).
+//   roi_align_bwd_kernel (maps whose 8-channel accumulator does not fit,
+//     e.g. 128x128, or P above 8; and the scatter path that
+//     roi_align_bwd_cuda's `_slice=0` forces): one block per (image, RoI,
+//     sample row), threads striding over (x sample, channel); each thread
+//     adds its value into the 4 cells of a zero-filled f32 [B, H, W, C]
+//     device buffer with atomicAdd, then cast_bf16_kernel rounds the sums
+//     once to the map's type (bf16 maps only; an f32 map's gradient is the
+//     buffer itself). At the training shape its 154 M device-memory atomics
+//     land on 0.7 M cells, ~220 an address, and the L2's atomic units, not
+//     HBM, set its pace.
 //
-//   What bounds it: at the training shape (6 images, 256 RoIs, a
-//   [37, 37, 512] bf16 map) it reads 77 MB of upstream gradient and
-//   writes a 17 MB f32 map gradient, ~28 us of HBM time; its 154 M
-//   atomic adds land on 0.7 M cells, ~220 an address, and the L2's
-//   atomic units, not HBM, set its pace. The sums' order changes from run
-//   to run (atomics), so two runs agree to f32 rounding, not bit for bit.
+// nm_roi_align_bwd_slice gives the dispatch: the shared-memory kernel at the
+// widest slice whose accumulator fits, else the scatter path. Both paths
+// sum in an order that changes from run to run (locks and atomics), so two
+// runs agree to f32 rounding, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -320,14 +351,15 @@ int pick_slice(int H, int W, int C, int P, size_t elem, int vec) {
   return cs;
 }
 
-// The launch settings of roi_align_smem_kernel<T> on the current device,
-// found once per device and shared-memory size (the host-side calls below
+// The launch settings of a shared-memory kernel (roi_align_smem_kernel<T>,
+// roi_align_bwd_smem_kernel<TG, TO>) on the current device, found once per
+// kernel, device and shared-memory size (the host-side calls below
 // would otherwise cost every launch of a launch-bound path): the opt-in
 // shared-memory limit raised to `smem`, the SM count, the blocks an SM
 // holds at `smem`.
 constexpr int kMaxDevices = 64;
 
-template <typename T>
+template <auto Kernel, int Threads = kThreads>
 cudaError_t smem_launch_config(size_t smem, int* sms, int* per_sm) {
   struct Config {
     size_t smem_limit = 0, occ_smem = 0;
@@ -346,7 +378,7 @@ cudaError_t smem_launch_config(size_t smem, int* sms, int* per_sm) {
     if (err != cudaSuccess) return err;
   }
   if (smem > c.smem_limit) {
-    err = cudaFuncSetAttribute(roi_align_smem_kernel<T>,
+    err = cudaFuncSetAttribute(Kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
@@ -354,7 +386,7 @@ cudaError_t smem_launch_config(size_t smem, int* sms, int* per_sm) {
   }
   if (smem != c.occ_smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &c.per_sm, roi_align_smem_kernel<T>, kThreads, smem);
+        &c.per_sm, Kernel, Threads, smem);
     if (err != cudaSuccess) return err;
     c.occ_smem = smem;
   }
@@ -381,7 +413,8 @@ int launch(const T* fmap, const float* rois, const uint8_t* valid, T* out,
   const size_t slice_bytes = ((size_t)H * W * cs * sizeof(T) + 15) & ~(size_t)15;
   const size_t smem = slice_bytes + (size_t)(kThreads / P) * 2 * P * sizeof(Tap);
   int sms = 0, per_sm = 0;
-  const cudaError_t err = smem_launch_config<T>(smem, &sms, &per_sm);
+  const cudaError_t err =
+      smem_launch_config<roi_align_smem_kernel<T>>(smem, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   // RoI groups: as many as fill the SMs in one wave, at least one
   const int64_t pairs = (int64_t)B * slices;
@@ -456,27 +489,482 @@ __global__ void cast_bf16_kernel(const float* __restrict__ in,
   }
 }
 
+// roi_align_bwd_smem_kernel's settings for a channel slice of CS (8, 16
+// or 32): its threads, 16 warps (two blocks an SM) or 32 at CS = 32 (one
+// block an SM: the 175 KB accumulator of a 37x37 map leaves no room for a
+// second); the floats a sample takes in a warp's row buffer (CS and 4 of
+// padding: the 16-byte reads of 8 lanes at 8 different samples hit 8
+// distinct bank groups).
+template <int CS>
+struct BwdCfg {
+  static constexpr int kThreads = CS == 32 ? 1024 : 512;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kBlocksPerSM = CS == 32 ? 1 : 2;
+  static constexpr int kBufStride = CS + 4;
+};
+// The slices the dispatch tries, widest first (chip_smoke.py phase 3 times
+// each at the training shape); the most samples a crop row has (its 2 *
+// kBwdRow x cells fill a warp's 16 cell lanes); the most RoIs of an image a
+// block sorts by height; the most shared memory a block can opt into on
+// Hopper.
+constexpr int kBwdSlices[] = {32, 16, 8};
+constexpr int kBwdRow = 8;
+constexpr int kBwdSortMax = 256;
+constexpr size_t kSmemOptin = 232448;
+
+// A RoI's x cell: the cell, the first and last sample px that touch it
+// (neighbours), and the tap weights of px = pa and pa + 1.
+struct XCell {
+  int x, pa, pb;
+  float wa, wb;
+};
+
+// The bands of x cells that a lock of roi_align_bwd_smem_kernel covers in
+// a map row: of 8 cells, or wider where a row has more than 16 of them (a
+// row pair of a RoI then needs at most 32 locks, one a lane).
+__host__ __device__ inline int bwd_band(int W) { return W > 128 ? (W + 15) / 16 : 8; }
+__host__ __device__ inline int bwd_bands(int W) { return (W + bwd_band(W) - 1) / bwd_band(W); }
+
+// The shared memory of roi_align_bwd_smem_kernel at slice cs: the f32
+// accumulator [cells][cs], a lock per (map row, band), the RoIs' sort keys and
+// order [kBwdSortMax], and each warp's row of g [P][cs + 4] (f32), taps
+// [2P] and x cells [2 * kBwdRow] of its RoI.
+size_t bwd_smem_bytes(int H, int W, int P, int cs) {
+  const size_t acc = ((size_t)H * W * cs * sizeof(float) + 15) & ~(size_t)15;
+  const size_t locks = ((size_t)H * bwd_bands(W) * sizeof(int) + 15) & ~(size_t)15;
+  const int warps = cs == 32 ? BwdCfg<32>::kWarps : BwdCfg<16>::kWarps;
+  return acc + locks + kBwdSortMax * (sizeof(float) + sizeof(int)) +
+         (size_t)warps * (P * (cs + 4) * sizeof(float) + 2 * P * sizeof(Tap) +
+                          2 * kBwdRow * sizeof(XCell));
+}
+
+// The word of channel ch of a cell in the accumulator: 16-byte chunks
+// swizzled by the cell, so that a quarter warp's 16-byte accesses (4
+// neighbouring cells x 2 channel halves) hit 8 distinct bank groups.
+template <int CS>
+__device__ __forceinline__ int acc_word(int cell, int ch) {
+  const int swz = CS == 32 ? cell & 7 : CS == 16 ? (cell >> 1) & 3 : (cell >> 2) & 1;
+  return cell * CS + (((ch >> 2) ^ swz) << 2) + (ch & 3);
+}
+
+// grid: B * slices blocks, one per (image b, channel slice s); the block
+// owns out[b, :, :, s*CS : s*CS + cw] as an f32 accumulator in shared
+// memory. Hopper has no native shared-memory f32 add (ptxas makes
+// atomicAdd a compare-and-swap loop, about one add a clock an SM), so the
+// accumulator takes plain adds under a lock per map row.
+//
+// The block's RoIs are sorted by height on the map (invalid ones last), and
+// each warp takes a run of them, so that warps running at one time mostly
+// add to different map rows. A warp works one RoI at a time: it computes
+// the RoI's 2P taps and its distinct x cells (at most 2P, found with
+// __match_any_sync) into its own shared tables; lane (e, cg) = (lane / 2,
+// lane % 2) takes x cell e and channel half cg (CS / 2 channels). Per
+// sample row py, lanes load the row's slice of g one row ahead (16-byte
+// loads) and store it in the warp's row buffer as f32; lane (e, cg) sums
+// tx.w * g over the samples that touch its cell, then, holding the locks of
+// the RoI's bands of map rows ty.i0 and ty.i1 (a lock covers 8 cells of a
+// row; a warp takes all it needs at once or none), adds ty.w0 and ty.w1
+// times the sum to its cells of those rows. The lanes of a row hit distinct
+// words.
+//
+// A warp's run is a chain of dependent steps, so the time of a block is
+// about that of its longest run: a wider slice halves the runs at the price
+// of one block an SM.
+// vec: 16-byte loads of g are aligned; vec_out: 16-byte stores of out are.
+template <typename TG, typename TO, int CS>
+__global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM)
+    roi_align_bwd_smem_kernel(const TG* __restrict__ g,
+                              const float* __restrict__ rois,
+                              const uint8_t* __restrict__ valid,
+                              TO* __restrict__ out, int H, int W, int C,
+                              int R, int P, float scale, int vec,
+                              int vec_out) {
+  constexpr int kThreadsB = BwdCfg<CS>::kThreads;
+  constexpr int kWarpsB = BwdCfg<CS>::kWarps;
+  constexpr int BS = BwdCfg<CS>::kBufStride;
+  constexpr int CL = CS / 2;         // channels a lane
+  constexpr int V = Vec16<TG>::VEC;  // values of g in 16 bytes
+  constexpr int U = CS / V;          // 16-byte pieces of a sample's slice
+  constexpr int LD = (kBwdRow * U + 31) / 32;  // pieces a lane loads a row
+  constexpr unsigned int kAll = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cells = H * W;
+  const int t = threadIdx.x;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [cells][CS], swizzled
+  unsigned char* rest =
+      smem_raw + (((size_t)cells * CS * sizeof(float) + 15) & ~(size_t)15);
+  const int band = bwd_band(W), nbands = bwd_bands(W);
+  int* locks = reinterpret_cast<int*>(rest);  // [H][nbands]
+  rest += ((size_t)H * nbands * sizeof(int) + 15) & ~(size_t)15;
+  float* keys = reinterpret_cast<float*>(rest);  // [kBwdSortMax]
+  int* order = reinterpret_cast<int*>(keys + kBwdSortMax);
+  rest += kBwdSortMax * (sizeof(float) + sizeof(int));
+  float* buf = reinterpret_cast<float*>(rest) + warp * P * BS;  // [P][BS]
+  rest += (size_t)kWarpsB * P * BS * sizeof(float);
+  Tap* taps = reinterpret_cast<Tap*>(rest) + warp * 2 * P;  // [y, x][P]
+  XCell* xcs = reinterpret_cast<XCell*>(reinterpret_cast<Tap*>(rest) +
+                                        kWarpsB * 2 * P) +
+               warp * 2 * kBwdRow;
+  const int e = lane >> 1;   // this lane's x cell of a RoI
+  const int cg = lane & 1;   // this lane's channel half
+
+  const int slices = (C + CS - 1) / CS;
+  const int s = blockIdx.x % slices;
+  const int b = blockIdx.x / slices;
+  const int c0 = s * CS;
+  const int cw = min(CS, C - c0);
+  const int nc = min(CL, cw - cg * CL);  // this lane's channels (<= 0: none)
+  for (int i = t; i < cells * CS; i += kThreadsB) acc[i] = 0.f;
+  for (int i = t; i < H * nbands; i += kThreadsB) locks[i] = 0;
+  // the RoIs in order of their height on the map (invalid ones last)
+  const bool sorted = R <= kBwdSortMax;
+  if (sorted) {
+    for (int r = t; r < R; r += kThreadsB) {
+      const int64_t roi = (int64_t)b * R + r;
+      const float k = rois[roi * 4 + 1] + rois[roi * 4 + 3];
+      keys[r] = valid[roi] && k == k ? k : INFINITY;
+    }
+  }
+  __syncthreads();
+  if (sorted) {
+    for (int r = t; r < R; r += kThreadsB) {
+      const float k = keys[r];
+      int rank = 0;
+      for (int q = 0; q < R; ++q) {
+        const float kq = keys[q];
+        rank += kq < k || (kq == k && q < r);
+      }
+      order[rank] = r;
+    }
+    __syncthreads();
+  }
+
+  const int run = (R + kWarpsB - 1) / kWarpsB;
+  const int i_end = min(R, (warp + 1) * run);
+  for (int i = warp * run; i < i_end; ++i) {  // the same for the warp
+    const int r = sorted ? order[i] : i;
+    const int64_t roi = (int64_t)b * R + r;
+    __syncwarp();  // the last RoI's tables are read
+    if (lane < 2 * P) {
+      const float* box = rois + roi * 4;
+      Tap tp;
+      if (lane < P) {
+        tp = axis_tap(__fmul_rn(box[1], scale), __fmul_rn(box[3], scale),
+                      lane, P, H);
+        if (!valid[roi]) {
+          tp.w0 = 0.f;
+          tp.w1 = 0.f;
+        }
+      } else {
+        tp = axis_tap(__fmul_rn(box[0], scale), __fmul_rn(box[2], scale),
+                      lane - P, P, W);
+      }
+      taps[lane] = tp;
+    }
+    __syncwarp();
+
+    // the x cells: lane l < 2P stands for tap l & 1 of sample l >> 1; the
+    // lanes of one cell are neighbours (u is monotonic in px), and the
+    // lowest of them lists it
+    int n;
+    {
+      Tap tp{0, 0, 0.f, 0.f};
+      if (lane < 2 * P) tp = taps[P + (lane >> 1)];
+      const int x = lane & 1 ? tp.i1 : tp.i0;
+      const bool ok = lane < 2 * P && (lane & 1 ? tp.w1 : tp.w0) != 0.f;
+      const unsigned int same = __match_any_sync(kAll, ok ? x : -1 - lane);
+      const bool lead = ok && lane == __ffs(same) - 1;
+      const unsigned int leads = __ballot_sync(kAll, lead);
+      if (lead) {
+        const int pa = (__ffs(same) - 1) >> 1;
+        const int pb = (31 - __clz(same)) >> 1;
+        const Tap ta = taps[P + pa];
+        XCell xc{x, pa, pb, ta.i0 == x ? ta.w0 : ta.w1, 0.f};
+        if (pb > pa) {
+          const Tap tb = taps[P + pa + 1];
+          xc.wb = tb.i0 == x ? tb.w0 : tb.w1;
+        }
+        xcs[__popc(leads & ((1u << lane) - 1))] = xc;
+      }
+      n = __popc(leads);
+    }
+    __syncwarp();
+    const bool on = e < n && nc > 0;
+    XCell xc{0, 0, -1, 0.f, 0.f};
+    if (on) xc = xcs[e];
+    // the bands of the RoI's x cells, where its rows' locks lie
+    const int blo = __reduce_min_sync(kAll, e < n ? xc.x : W) / band;
+    const int nbw = __reduce_max_sync(kAll, e < n ? xc.x : 0) / band - blo + 1;
+    unsigned int backoff = 2654435761u * (blockIdx.x * kWarpsB + warp + 1);
+
+    // the rows of g: lane l loads pieces k = l * LD + j (16 bytes of
+    // sample k / U, channels (k % U) * V on) one row ahead, and at the
+    // row's start stores them in the warp's buffer as f32 (element loads,
+    // not ahead, where 16-byte ones are not aligned)
+    const TG* src = g + roi * P * P * C + c0;  // sample (0, 0)
+    const int64_t row_step = (int64_t)P * C;
+    uint4 raw[LD];
+    auto piece_on = [&](int k) { return k < P * U && (k % U) * V < cw; };
+    auto stage = [&](int py) {
+      if (!vec) return;
+#pragma unroll
+      for (int j = 0; j < LD; ++j) {
+        const int k = lane * LD + j;
+        if (piece_on(k)) {
+          raw[j] = __ldg(reinterpret_cast<const uint4*>(
+              src + py * row_step + (int64_t)(k / U) * C + (k % U) * V));
+        }
+      }
+    };
+    auto skip = [&](int py) {  // an invalid RoI, or a row outside the map
+      return taps[py].w0 == 0.f && taps[py].w1 == 0.f;
+    };
+    int py = 0;  // the next row that adds anything
+    while (py < P && skip(py)) ++py;
+    if (py < P) stage(py);
+    while (py < P) {
+      const Tap ty = taps[py];
+      __syncwarp();  // the last row's buffer is read
+#pragma unroll
+      for (int j = 0; j < LD; ++j) {
+        const int k = lane * LD + j;
+        if (piece_on(k)) {
+          float f[V];
+          if (vec) {
+            Vec16<TG>::unpack(raw[j], f);
+          } else {
+            const TG* p = src + py * row_step + (int64_t)(k / U) * C + (k % U) * V;
+            const int m = cw - (k % U) * V;
+#pragma unroll
+            for (int q = 0; q < V; ++q) f[q] = q < m ? load_f(p + q) : 0.f;
+          }
+          float4* d = reinterpret_cast<float4*>(buf + (k / U) * BS + (k % U) * V);
+#pragma unroll
+          for (int q = 0; q < V / 4; ++q) {
+            d[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+          }
+        }
+      }
+      __syncwarp();
+      do {
+        ++py;
+      } while (py < P && skip(py));
+      if (py < P) stage(py);  // in flight while this row is summed and added
+
+      // sum[c] = sum over the cell's samples of tx.w * g (channel c)
+      float sum[CL];
+#pragma unroll
+      for (int c = 0; c < CL; ++c) sum[c] = 0.f;
+      for (int px = xc.pa; px <= xc.pb; ++px) {
+        float w;
+        if (px - xc.pa < 2) {
+          w = px == xc.pa ? xc.wa : xc.wb;
+        } else {  // a cell of more samples (small RoIs)
+          const Tap tp = taps[P + px];
+          w = tp.i0 == xc.x ? tp.w0 : tp.w1;
+        }
+        const float4* v = reinterpret_cast<const float4*>(buf + px * BS + cg * CL);
+#pragma unroll
+        for (int c = 0; c < CL / 4; ++c) {
+          const float4 f = v[c];
+          sum[4 * c] += w * f.x;
+          sum[4 * c + 1] += w * f.y;
+          sum[4 * c + 2] += w * f.z;
+          sum[4 * c + 3] += w * f.w;
+        }
+      }
+
+      // add ty.w0 * sum to map row ty.i0 and ty.w1 * sum to row ty.i1 (the
+      // forward's ty.w * (tx.w * v) taps, transposed), holding the locks of
+      // the RoI's bands of those rows: lane k < need takes one; where any is
+      // held elsewhere the warp frees those it took and tries again after a
+      // pseudo-random pause, so it never waits while holding one
+      const bool r0 = ty.w0 != 0.f, r1 = ty.w1 != 0.f;
+      const int need = (r0 + r1) * nbw;
+      int* my_lock = nullptr;
+      if (lane < need) {
+        const int row = r0 && lane < nbw ? ty.i0 : ty.i1;
+        my_lock = locks + row * nbands + blo + lane % nbw;
+      }
+      while (true) {
+        const bool got = !my_lock || atomicCAS(my_lock, 0, 1) == 0;
+        if (__all_sync(kAll, got)) break;
+        if (my_lock && got) atomicExch(my_lock, 0);
+        backoff = backoff * 1664525u + 1013904223u;
+        __nanosleep(32 + (backoff >> 26));
+      }
+      if (my_lock) __threadfence_block();
+      __syncwarp();
+      if (on) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (!(k ? r1 : r0)) continue;
+          const float wy = k ? ty.w1 : ty.w0;
+          const int cell = (k ? ty.i1 : ty.i0) * W + xc.x;
+          if (nc == CL) {
+#pragma unroll
+            for (int c = 0; c < CL / 4; ++c) {
+              float4* a = reinterpret_cast<float4*>(
+                  acc + acc_word<CS>(cell, cg * CL + 4 * c));
+              float4 q = *a;
+              q.x += wy * sum[4 * c];
+              q.y += wy * sum[4 * c + 1];
+              q.z += wy * sum[4 * c + 2];
+              q.w += wy * sum[4 * c + 3];
+              *a = q;
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < CL; ++c) {
+              if (c < nc) acc[acc_word<CS>(cell, cg * CL + c)] += wy * sum[c];
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (my_lock) {
+        __threadfence_block();
+        atomicExch(my_lock, 0);
+      }
+    }
+  }
+
+  // the slice, rounded once to the map's type
+  __syncthreads();
+  constexpr int OVEC = Vec16<TO>::VEC;
+  TO* dst = out + (int64_t)b * cells * C + c0;
+  if (vec_out) {  // cw is a multiple of OVEC (4 or 8 channels)
+    const int nv = cw / OVEC;
+    for (int i = t; i < cells * nv; i += kThreadsB) {
+      const int cell = i / nv;
+      const int ch = (i - cell * nv) * OVEC;
+      float f[OVEC];
+#pragma unroll
+      for (int u = 0; u < OVEC; u += 4) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(acc + acc_word<CS>(cell, ch + u));
+        f[u] = q.x;
+        f[u + 1] = q.y;
+        f[u + 2] = q.z;
+        f[u + 3] = q.w;
+      }
+      *reinterpret_cast<uint4*>(dst + (int64_t)cell * C + ch) =
+          Vec16<TO>::pack(f);
+    }
+  } else {
+    for (int i = t; i < cells * cw; i += kThreadsB) {
+      const int cell = i / cw;
+      const int ch = i - cell * cw;
+      store_f(dst + (int64_t)cell * C + ch, acc[acc_word<CS>(cell, ch)]);
+    }
+  }
+}
+
+// The channel slice of roi_align_bwd_smem_kernel for these shapes: the
+// widest of kBwdSlices whose accumulator fits, else 0 (the scatter path;
+// also where P exceeds the kBwdRow samples a warp holds).
+int bwd_slice(int H, int W, int P) {
+  if (P > kBwdRow) return 0;
+  for (int cs : kBwdSlices) {
+    if (bwd_smem_bytes(H, W, P, cs) <= kSmemOptin) return cs;
+  }
+  return 0;
+}
+
+template <typename TG, typename TO, int CS>
+int launch_bwd_smem_cs(const TG* g, const float* rois, const uint8_t* valid,
+                       TO* out, int B, int H, int W, int C, int R, int P,
+                       float scale, cudaStream_t s) {
+  const size_t smem = bwd_smem_bytes(H, W, P, CS);
+  if (P > kBwdRow || smem > kSmemOptin) return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  const cudaError_t err =
+      smem_launch_config<roi_align_bwd_smem_kernel<TG, TO, CS>,
+                         BwdCfg<CS>::kThreads>(smem, &sms, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte loads of g stay aligned where C is a multiple of 8 channels
+  const int vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(g) % 16 == 0);
+  constexpr int OVEC = Vec16<TO>::VEC;
+  const int vec_out = (C % OVEC == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const int64_t blocks = (int64_t)B * ((C + CS - 1) / CS);
+  roi_align_bwd_smem_kernel<TG, TO, CS>
+      <<<(unsigned int)blocks, BwdCfg<CS>::kThreads, smem, s>>>(
+      g, rois, valid, out, H, W, C, R, P, scale, vec, vec_out);
+  return (int)cudaGetLastError();
+}
+
+template <typename TG, typename TO>
+int launch_bwd_smem(const TG* g, const float* rois, const uint8_t* valid,
+                    TO* out, int B, int H, int W, int C, int R, int P,
+                    float scale, int cs, cudaStream_t s) {
+  switch (cs) {
+    case 32:
+      return launch_bwd_smem_cs<TG, TO, 32>(g, rois, valid, out, B, H, W, C,
+                                            R, P, scale, s);
+    case 16:
+      return launch_bwd_smem_cs<TG, TO, 16>(g, rois, valid, out, B, H, W, C,
+                                            R, P, scale, s);
+    case 8:
+      return launch_bwd_smem_cs<TG, TO, 8>(g, rois, valid, out, B, H, W, C,
+                                           R, P, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// The channel slice nm_roi_align_bwd's dispatch takes for these shapes:
+// the shared-memory kernel's cs, or 0 for the scatter path.
+extern "C" int nm_roi_align_bwd_slice(int H, int W, int P) {
+  return bwd_slice(H, W, P);
+}
+
 // g [B, R, P, P, C] (f32, or bf16 when g_is_bf16), rois [B, R, 4] f32,
-// valid [B, R] uint8 -> acc [B, H, W, C] f32 (zeroed here, then the sums),
-// and out = acc rounded to bf16 when out_is_bf16 (else out is acc).
+// valid [B, R] uint8 -> out [B, H, W, C] (bf16 when out_is_bf16, else f32).
+// cs > 0: the shared-memory kernel at that channel slice (acc unused).
+// cs == 0: the scatter path into acc [B, H, W, C] f32 (zeroed here, then
+// the sums), out = acc rounded to bf16 when out_is_bf16 (else out is acc).
 extern "C" int nm_roi_align_bwd(const void* g, const void* rois,
                                 const void* valid, void* acc, void* out,
                                 int B, int H, int W, int C, int R, int P,
                                 float scale, int g_is_bf16, int out_is_bf16,
-                                void* stream) {
+                                int cs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = (int64_t)B * H * W * C;
   if (n == 0) return 0;
-  if (P < 2 || P > kBwdMaxP || B > 65535) return (int)cudaErrorInvalidValue;
+  if (P < 2 || P > kBwdMaxP || cs < 0) return (int)cudaErrorInvalidValue;
+  const float* r = static_cast<const float*>(rois);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  if (cs > 0) {
+    using bf16 = __nv_bfloat16;
+    if (g_is_bf16 && out_is_bf16) {
+      return launch_bwd_smem(static_cast<const bf16*>(g), r, v,
+                             static_cast<bf16*>(out), B, H, W, C, R, P, scale,
+                             cs, s);
+    }
+    if (g_is_bf16) {
+      return launch_bwd_smem(static_cast<const bf16*>(g), r, v,
+                             static_cast<float*>(out), B, H, W, C, R, P, scale,
+                             cs, s);
+    }
+    if (out_is_bf16) {
+      return launch_bwd_smem(static_cast<const float*>(g), r, v,
+                             static_cast<bf16*>(out), B, H, W, C, R, P, scale,
+                             cs, s);
+    }
+    return launch_bwd_smem(static_cast<const float*>(g), r, v,
+                           static_cast<float*>(out), B, H, W, C, R, P, scale,
+                           cs, s);
+  }
+  if (B > 65535) return (int)cudaErrorInvalidValue;
   float* a = static_cast<float*>(acc);
   cudaError_t err = cudaMemsetAsync(a, 0, n * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
   if (R > 0) {
     const dim3 grid((unsigned int)((int64_t)R * P), (unsigned int)B);
-    const float* r = static_cast<const float*>(rois);
-    const uint8_t* v = static_cast<const uint8_t*>(valid);
     if (g_is_bf16) {
       roi_align_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(g), r, v, a, H, W, C, R, P, scale);

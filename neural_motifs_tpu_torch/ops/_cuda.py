@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 On first use the sources under `neural_motifs_tpu_torch/csrc/` are compiled
-with nvcc for Hopper (`sm_90a`) into one shared library with a plain C
-interface under `build/torch_kernels/` at the repository root, keyed by a
-hash of the sources and flags, and loaded with ctypes. A C entry point
+with nvcc for Hopper (`sm_90a`), one nvcc process a source, all started
+together, and linked into one shared library with a plain C interface under
+`build/torch_kernels/` at the repository root, keyed by a hash of the
+sources and flags, and loaded with ctypes. A C entry point
 returns the launch's `cudaGetLastError()`; `check` raises on a non-zero
 code. Nothing here runs at import time.
 """
@@ -23,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: the NMS kernels must reproduce the IEEE IoU division
 # of the plain versions bit for bit, or keep decisions flip.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,9 +34,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # fmap, rois, valid, out, B, H, W, C, R, P, spatial_scale, is_bf16, stream
     "nm_roi_align_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # g, rois, valid, acc (f32), out, B, H, W, C, R, P, spatial_scale,
-    # g_is_bf16, out_is_bf16, stream
-    "nm_roi_align_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    # H, W, P -> the backward's channel slice (0: the scatter path)
+    "nm_roi_align_bwd_slice": (_I, _I, _I),
+    # g, rois, valid, acc (f32, the scatter path's), out, B, H, W, C, R, P,
+    # spatial_scale, g_is_bf16, out_is_bf16, slice, stream
+    "nm_roi_align_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # boxes, valid, keep, lanes, K, thresh, stream
     "nm_perclass_nms": (_P, _P, _P, _I, _I, _F, _P),
     # boxes, valid, mask, keep, lanes, N, thresh, stream
@@ -56,7 +59,8 @@ def _find_nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into one shared library unless a build of the same
-    sources and flags exists. Returns its path; raises with the compiler's
+    sources and flags exists: each source to an object by its own nvcc, all
+    at once, then one link. Returns its path; raises with the compiler's
     output on failure."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -65,15 +69,33 @@ def build() -> Path:
     out = BUILD_DIR / f"libnm_torch_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
+    nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            _check_nvcc(cmd, proc.communicate()[0], proc.returncode)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, proc.stdout + proc.stderr, proc.returncode)
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)   # atomic: a concurrent process never loads a partial file
     return out
+
+
+def _check_nvcc(cmd: list, output: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{output}")
 
 
 @functools.cache

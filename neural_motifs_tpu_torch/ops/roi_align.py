@@ -18,8 +18,11 @@ Two evaluations of the same function:
     for that) that replaces the Pallas `pallas_roi_align`. It runs for
     CUDA tensors, unchunked: it keeps no [R, P, W, C] intermediate. Its
     backward, `roi_align_bwd_cuda` (csrc/roi_align.cu: each output
-    gradient scattered into its 4 taps with f32 atomics, then cast once to
-    the map's type), sits behind the autograd Function `_RoIAlignCUDA`.
+    gradient added into its 4 taps in an f32 shared-memory accumulator of
+    one (image, channel slice), under row locks, and written once in the
+    map's type; for a map too large for that, scattered with f32
+    device-memory atomics, then cast once), sits behind the autograd
+    Function `_RoIAlignCUDA`.
 
 The map gets a gradient and the boxes and the mask get none, on both
 paths: the JAX kernel's custom_vjp (`_bwd`) and the reference's CUDA
@@ -108,10 +111,16 @@ roi_align_cuda.launches = 0
 
 
 def roi_align_bwd_cuda(g: Tensor, rois: Tensor, valid: Tensor, fmap_shape: tuple,
-                       fmap_dtype: torch.dtype, spatial_scale: float) -> Tensor:
+                       fmap_dtype: torch.dtype, spatial_scale: float, *,
+                       _slice: int | None = None) -> Tensor:
     """Launch the RoIAlign backward kernel: the gradient of the crops g
     [B,R,P,P,C] f32/bf16 on CUDA, rois [B,R,4], valid [B,R] bool -> the
-    map's gradient [B,H,W,C] in `fmap_dtype` (summed in f32)."""
+    map's gradient [B,H,W,C] in `fmap_dtype` (summed in f32).
+
+    The kernel is the shared-memory accumulator wherever it fits, else the
+    scatter kernel (`_bwd_slice`). `_slice`, for testing and timing the
+    paths side by side only: 0 forces the scatter path, 8, 16 or 32 the
+    shared-memory kernel at that channel slice."""
     b, h, w, c = fmap_shape
     if g.dtype not in (torch.float32, torch.bfloat16) or g.dim() != 5 \
             or g.shape[0] != b or g.shape[-1] != c or g.shape[2] != g.shape[3] \
@@ -126,17 +135,27 @@ def roi_align_bwd_cuda(g: Tensor, rois: Tensor, valid: Tensor, fmap_shape: tuple
     rois = rois.detach().float().contiguous()
     valid = valid.contiguous()
     _cuda.require_cuda("roi_align_bwd_cuda", g, rois, valid)
-    acc = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
-    out = acc if fmap_dtype == torch.float32 else torch.empty(
-        (b, h, w, c), dtype=fmap_dtype, device=g.device)
+    p = g.shape[2]
+    cs = _bwd_slice(h, w, p) if _slice is None else _slice
+    out = torch.empty((b, h, w, c), dtype=fmap_dtype, device=g.device)
+    acc = out
+    if cs == 0 and fmap_dtype != torch.float32:
+        acc = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     code = _cuda.lib().nm_roi_align_bwd(
         g.data_ptr(), rois.data_ptr(), valid.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), b, h, w, c, g.shape[1], g.shape[2], float(spatial_scale),
-        int(g.dtype == torch.bfloat16), int(fmap_dtype == torch.bfloat16),
+        out.data_ptr(), b, h, w, c, g.shape[1], p, float(spatial_scale),
+        int(g.dtype == torch.bfloat16), int(fmap_dtype == torch.bfloat16), cs,
         _cuda.stream_ptr(g.device))
     _cuda.check(code, "roi_align_bwd_cuda")
     roi_align_bwd_cuda.launches += 1
     return out
+
+
+def _bwd_slice(h: int, w: int, p: int) -> int:
+    """The channel slice of the backward's shared-memory kernel for an
+    [H, W] map and P x P crops, or 0 where its accumulator does not fit in
+    shared memory (the scatter path)."""
+    return _cuda.lib().nm_roi_align_bwd_slice(h, w, p)
 
 
 roi_align_bwd_cuda.launches = 0

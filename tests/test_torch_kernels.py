@@ -443,6 +443,81 @@ def test_roi_align_backward_kernel_edge_rois(np_rng, cuda):
     assert not only_out.any()
 
 
+# K1's backward cases: (B, H, W, C, R) and the path the dispatch must take
+BWD_CASES = {
+    "train": ((6, 37, 37, 512, 256), "smem"),     # detector training's shape
+    "b1": ((1, 37, 37, 512, 64), "smem"),
+    "c20": ((2, 37, 37, 20, 100), "smem"),        # C not a multiple of 16 bytes
+    "large": ((1, 128, 128, 64, 100), "scatter"),  # no accumulator fits
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("path", ["dispatch", "scatter"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_roi_align_backward_paths_match_plain(np_rng, cuda, case, path, dtype):
+    """Both paths of K1's backward, the one the dispatch takes and the
+    scatter path forced (`_slice=0`), against the plain version, with the
+    tolerances of test_roi_align_backward_kernel_matches_plain: the
+    shared-memory kernel wherever its accumulator fits (37x37 maps at
+    B = 6 and 1, C = 20: a slice narrower than the kernel's, not a multiple
+    of 16 bytes in bf16), the scatter path for a 128x128 map; g and the
+    map's gradient in `dtype`."""
+    (b, h, w, c, r), taken = BWD_CASES[case]
+    assert (ra._bwd_slice(h, w, 7) > 0) == (taken == "smem")
+    fmap = T(np_rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
+    rois = T(rand_boxes(np_rng, (b, r), 16 * max(h, w)) - 50.0).to(cuda)
+    valid = T(np_rng.uniform(0, 1, (b, r)) < 0.9).to(cuda)
+    g = T(np_rng.standard_normal((b, r, 7, 7, c)).astype(np.float32)).to(cuda).to(dtype)
+    before = ra.roi_align_bwd_cuda.launches
+    got = ra.roi_align_bwd_cuda(g, rois, valid, (b, h, w, c), dtype, 1 / 16,
+                                _slice=0 if path == "scatter" else None)
+    torch.cuda.synchronize()
+    assert ra.roi_align_bwd_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    exp = ra._roi_align_bwd_plain(g.float(), fmap, rois, valid, 1 / 16)
+    scale = exp.abs().max().item()
+    assert scale > 0
+    if dtype == torch.float32:
+        assert (got - exp).abs().max().item() <= 1e-5 * scale
+    else:
+        torch.testing.assert_close(got.float(), exp, rtol=1e-2, atol=1e-3 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cs", [8, 16, 32])
+def test_roi_align_backward_slices_edge_rois(np_rng, cuda, cs, dtype):
+    """The shared-memory kernel at each channel slice on RoIs of every
+    kind: random ones, boxes with x2 < x1 or y2 < y1 (their samples walk
+    the map backwards), of zero width or height, wholly outside, sampling
+    on G-1 exactly, tiny ones whose samples share cells, and invalid ones;
+    C = 40 (a slice of 32 leaves a tail of 8), against the plain version
+    within the tolerances of test_roi_align_backward_kernel_matches_plain."""
+    b, h, w, c = 2, 37, 37, 40
+    rois = rand_boxes(np_rng, (b, 120), 700) - 50.0
+    rois[:, :10, [0, 2]] = rois[:, :10, [2, 0]]          # x2 < x1
+    rois[:, 10:20, [1, 3]] = rois[:, 10:20, [3, 1]]      # y2 < y1
+    rois[:, 20:25, 2] = rois[:, 20:25, 0]                # zero width
+    rois[:, 25:30, 3] = rois[:, 25:30, 1]                # zero height
+    rois[:, 30:35] = [700, 700, 900, 800]                # outside
+    rois[:, 35:40] = [64, 64, 576, 576]                  # samples on G-1
+    rois[:, 40:60, 2:] = rois[:, 40:60, :2] + np_rng.uniform(0, 20, (b, 20, 2))  # tiny
+    valid = np_rng.uniform(0, 1, (b, 120)) < 0.9
+    fmap = T(np_rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
+    r, v = T(rois).to(cuda), T(valid).to(cuda)
+    g = T(np_rng.standard_normal((b, 120, 7, 7, c)).astype(np.float32)).to(cuda).to(dtype)
+    got = ra.roi_align_bwd_cuda(g, r, v, (b, h, w, c), dtype, 1 / 16, _slice=cs)
+    exp = ra._roi_align_bwd_plain(g.float(), fmap, r, v, 1 / 16)
+    scale = exp.abs().max().item()
+    assert scale > 0
+    if dtype == torch.float32:
+        assert (got - exp).abs().max().item() <= 1e-5 * scale
+    else:
+        torch.testing.assert_close(got.float(), exp, rtol=1e-2, atol=1e-3 * scale)
+
+
 @pytest.mark.gpu
 def test_greedy_nms_kernel_rpn_training_budget(np_rng, cuda):
     """The RPN's training proposals: nms_topk over [6, 12000] RPN-like

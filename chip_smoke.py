@@ -17,9 +17,9 @@ script exits non-zero without a result line):
                 K1's backward in f32 and bf16 at detector training's
                 [6, 37, 37, 512] map and 256 RoIs an image, both the
                 shared-memory kernel the dispatch takes and the scatter path
-                forced, each timed, the former also at cs = 8, 16 and 32, and
-                the scatter path on a [1, 128, 128, 64] map too large for
-                the former; K2 on
+                forced, each timed (the former's whole call must take less
+                device time), and the scatter path on a [1, 128, 128, 64]
+                map too large for the former; K2 on
                 random lanes and on the request's full lanes of clustered
                 boxes; K3 on uniform random and on RPN-like clustered
                 boxes, on the RPN's training budget [6, 12000] at 0.7, on
@@ -330,7 +330,7 @@ def pipelined_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, names: tuple, reps: int = 10, tries: int = 2) -> dict | None:
+def device_ms(fn, names: tuple, reps: int = 10, tries: int = 3) -> dict | None:
     """Device time per call from torch.profiler's key_averages(): summed
     over the kernels whose names hold each of `names`, and over every
     kernel of the call ("all"); profiled again where a profile shows no
@@ -552,12 +552,12 @@ def sass_atomics(so) -> str:
 
 
 def check_roi_align_bwd_large(dev, gen) -> dict:
-    """A [1, 128, 128, 64] map, whose cs = 8 accumulator does not fit in
-    shared memory: the dispatch takes the scatter path, which matches the
+    """A [1, 128, 128, 64] map, whose 32-channel accumulator does not fit
+    in shared memory: the dispatch takes the scatter path, which matches the
     plain version (f32 within 1e-5, bf16 within rtol 1e-2 + 1e-3 of the
     largest magnitude)."""
     shape = (1, 128, 128, 64)
-    require(ra._bwd_slice(128, 128, 7) == 0,
+    require(not ra._bwd_smem_fits(128, 128, 7),
             "K1 backward: a 128x128 map must take the scatter path")
     fmap = torch.randn(shape, generator=gen, device=dev)
     rois = rand_boxes(gen, (1, 100), 2048, dev) - 100.0
@@ -585,20 +585,20 @@ def check_roi_align_bwd(dev, gen) -> dict:
     """K1's backward at detector training's shape: a [6, 37, 37, 512] map,
     256 RoIs an image drawn as a training step draws them (det_train_rois).
     Both paths, the shared-memory kernel the dispatch takes and the scatter
-    path forced (`_slice=0`), against the plain version (autograd of the
+    path forced (`_scatter=True`), against the plain version (autograd of the
     separable form in f32 on the same values): f32 within 1e-5 of the
     largest magnitude (atomics sum in another order), bf16 within rtol 1e-2
     + 1e-3 of it (one rounding of the f32 sums); then each path's times on
     the bf16 call, bound and share, beside the plain version and the
-    yardstick; the shared-memory kernel at cs = 8, 16 and 32; a map too
-    large for it (the scatter path)."""
+    yardstick; the shared-memory kernel's whole call must take less device
+    time than the scatter path's; a map too large for it (the scatter
+    path)."""
     b, r, shape = 6, 256, (6, 37, 37, 512)
     fmap = torch.randn(shape, generator=gen, device=dev)
     rois, valid = det_train_rois(gen, dev, b)
     require(rois.shape == (b, r, 4) and bool(valid.all()),
             f"K1 backward: the sample is {tuple(rois.shape)}, {int(valid.sum())} valid")
-    cs = ra._bwd_slice(37, 37, 7)
-    require(cs > 0,
+    require(ra._bwd_smem_fits(37, 37, 7),
             "K1 backward: the training shape must take the shared-memory kernel")
     g = torch.randn(b, r, 7, 7, 512, generator=gen, device=dev)
     exp = ra._roi_align_bwd_plain(g, fmap, rois, valid, 1 / 16)
@@ -606,29 +606,29 @@ def check_roi_align_bwd(dev, gen) -> dict:
     g16, f16 = g.bfloat16(), fmap.bfloat16()
     exp16 = ra._roi_align_bwd_plain(g16.float(), fmap, rois, valid, 1 / 16)
     errs = {}
-    for path, sl in (("kernel", None), ("scatter", 0)):
-        got = ra.roi_align_bwd_cuda(g, rois, valid, shape, torch.float32, 1 / 16, _slice=sl)
+    for path in ("kernel", "scatter"):
+        got = ra.roi_align_bwd_cuda(g, rois, valid, shape, torch.float32, 1 / 16,
+                                    _scatter=path == "scatter")
         errs[path] = (got - exp).abs().max().item()
         require(scale > 0 and errs[path] <= 1e-5 * scale,
                 f"K1 backward ({path}) f32 max abs error {errs[path]} > 1e-5 x {scale}")
         got16 = ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16, 1 / 16,
-                                      _slice=sl)
+                                      _scatter=path == "scatter")
         torch.testing.assert_close(got16.float(), exp16, rtol=1e-2,
                                    atol=1e-3 * exp16.abs().max().item())
     del exp, got, exp16, got16
 
-    def call(sl):
+    def call(scatter):
         return lambda: ra.roi_align_bwd_cuda(g16, rois, valid, shape, torch.bfloat16,
-                                             1 / 16, _slice=sl)
+                                             1 / 16, _scatter=scatter)
 
     b_ms, b_by = roi_align_bwd_bound(b, 37, 37, 512, r, 7, 2)
-    kern = bwd_times(call(None), ("roi_align_bwd_smem",), b_ms)
-    scat = bwd_times(call(0), ("roi_align_bwd_kernel", "cast_bf16"), b_ms)
-    slices = {w: bwd_times(call(w), ("roi_align_bwd_smem",), b_ms) for w in (8, 16, 32)}
+    kern = bwd_times(call(False), ("roi_align_bwd_smem",), b_ms)
+    scat = bwd_times(call(True), ("roi_align_bwd_kernel", "cast_bf16"), b_ms)
     t_p = time_ms(lambda: ra._roi_align_bwd_plain(g16, f16, rois, valid, 1 / 16), reps=3)
     lib = time_ms(yardstick_grid_sample_bwd(f16, rois, 7, 1 / 16))
     head = "K1 roi_align_bwd bf16 [6, 37, 37, 512] R=256"
-    for label, err, t in ((f"shared-memory kernel, cs={cs}", errs["kernel"], kern),
+    for label, err, t in (("shared-memory kernel", errs["kernel"], kern),
                           ("scatter path", errs["scatter"], scat)):
         parts = ("not measured" if t["kernels_ms"] is None else
                  ", ".join(f"{n} {v:.4f}" for n, v in t["kernels_ms"].items()))
@@ -638,22 +638,19 @@ def check_roi_align_bwd(dev, gen) -> dict:
               f"kernel of the call {fmt_ms(t['call_device_ms'])} ms); bound {b_ms:.4f} ms "
               f"({b_by}), share of bound {t['share_of_bound']:.3f} on the call, "
               f"{fmt_ms(t['device_share_of_bound'])} on device time", flush=True)
-    print(f"{head}: plain {t_p:.3f} ms, grid_sample backward {lib:.4f} ms; the slice "
-          f"width at the training shape: "
-          + ", ".join(f"cs={w} {t['ms']:.4f} ms a synced call, device "
-                      f"{fmt_ms(t['call_device_ms'])}" for w, t in slices.items())
-          + f" (the dispatch takes cs={cs})", flush=True)
-    if kern["call_device_ms"] and scat["call_device_ms"]:
-        require(kern["call_device_ms"] < scat["call_device_ms"],
-                f"K1 backward: the shared-memory kernel's device time "
-                f"{kern['call_device_ms']} ms is not below the scatter path's "
-                f"{scat['call_device_ms']} ms")
+    print(f"{head}: plain {t_p:.3f} ms, grid_sample backward {lib:.4f} ms", flush=True)
+    require(kern["call_device_ms"] is not None and scat["call_device_ms"] is not None,
+            "K1 backward: the profiler recorded no device time for a path, so the "
+            "two paths cannot be compared")
+    require(kern["call_device_ms"] < scat["call_device_ms"],
+            f"K1 backward: the shared-memory kernel's device time "
+            f"{kern['call_device_ms']} ms is not below the scatter path's "
+            f"{scat['call_device_ms']} ms")
     large = check_roi_align_bwd_large(dev, gen)
-    return dict(shape=[b, r, 37, 37, 512], path=f"shared memory, cs={cs}",
+    return dict(shape=[b, r, 37, 37, 512], path="shared memory",
                 max_abs_err=errs["kernel"], max_abs_err_rel=errs["kernel"] / scale,
                 plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=lib, **kern,
-                scatter=dict(max_abs_err=errs["scatter"], **scat),
-                slices={str(w): t for w, t in slices.items()}, large_map=large)
+                scatter=dict(max_abs_err=errs["scatter"], **scat), large_map=large)
 
 
 def check_kernels(dev, gen) -> dict:
@@ -1204,11 +1201,12 @@ def check_detector_train(smi: str, dev) -> dict:
         f"scatter kernel {dev_t['roi_align_bwd_kernel']:.4f}, cast "
         f"{dev_t['cast_bf16']:.4f}), K3 {dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms"),
         flush=True)
-    if dev_t is not None:
-        require(dev_t["roi_align_bwd_smem"] > 0 and dev_t["roi_align_bwd_kernel"] == 0
-                and dev_t["cast_bf16"] == 0,
-                "detector step: K1's backward must run the shared-memory kernel, with no "
-                "scatter or cast launch for the bf16 map")
+    require(dev_t is not None, "detector step: the profiler recorded no device time, so "
+            "the kernels K1's backward ran cannot be checked")
+    require(dev_t["roi_align_bwd_smem"] > 0 and dev_t["roi_align_bwd_kernel"] == 0
+            and dev_t["cast_bf16"] == 0,
+            "detector step: K1's backward must run the shared-memory kernel, with no "
+            "scatter or cast launch for the bf16 map")
     # K1's backward alone on this step's own RoI sample, beside phase 3's
     # drawn sample (the kernels line's figures)
     out = step(kw, gen)[1]

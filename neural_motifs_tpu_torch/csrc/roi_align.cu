@@ -46,11 +46,11 @@
 // the forward read it from, with the forward's taps (an invalid RoI, or a
 // sample outside the map, adds nothing). Two paths, as for the forward:
 //
-//   roi_align_bwd_smem_kernel (every map whose accumulator fits in shared
-//     memory: a 32-channel slice up to ~1 400 cells, the detector's 37x37
-//     maps; 16 channels up to ~3 300; 8 up to ~6 700): the forward's
-//     roi_align_smem_kernel turned around. One block per (image, channel
-//     slice) owns the [H, W, cs] slice of that image's gradient alone, as
+//   roi_align_bwd_smem_kernel (every map whose 32-channel accumulator fits
+//     in shared memory: up to ~1 400 cells, rows of at most 128 cells and
+//     P up to 8, as the detector's 37x37 maps and 7x7 crops): the forward's
+//     roi_align_smem_kernel turned around. One block per (image, 32-channel
+//     slice) owns the [H, W, 32] slice of that image's gradient alone, as
 //     an f32 accumulator in shared memory; no two blocks write one address,
 //     so there are no device-memory atomics, no zero-fill of a device
 //     buffer and no cast pass: the block zeroes its accumulator, adds every
@@ -72,23 +72,22 @@
 //     3.35 TB/s) but each warp's chain of dependent steps a sample row
 //     (shared-memory round trips, warp syncs, the lock): the block takes
 //     about as long as its longest run of RoIs, so the 32-channel slice (32
-//     warps, 8 RoIs each, one block an SM) beats 16 channels (16 warps, 16
-//     RoIs each, two blocks an SM).
-//   roi_align_bwd_kernel (maps whose 8-channel accumulator does not fit,
-//     e.g. 128x128, or P above 8; and the scatter path that
-//     roi_align_bwd_cuda's `_slice=0` forces): one block per (image, RoI,
-//     sample row), threads striding over (x sample, channel); each thread
-//     adds its value into the 4 cells of a zero-filled f32 [B, H, W, C]
-//     device buffer with atomicAdd, then cast_bf16_kernel rounds the sums
-//     once to the map's type (bf16 maps only; an f32 map's gradient is the
-//     buffer itself). At the training shape its 154 M device-memory atomics
-//     land on 0.7 M cells, ~220 an address, and the L2's atomic units, not
-//     HBM, set its pace.
+//     warps, 8 RoIs each, one block an SM) is the one slice width.
+//   roi_align_bwd_kernel (maps whose accumulator does not fit, e.g.
+//     128x128, or P above 8; and the scatter path that roi_align_bwd_cuda's
+//     `_scatter=True` forces): one block per (image, RoI, sample row),
+//     threads striding over (x sample, channel); each thread adds its value
+//     into the 4 cells of a zero-filled f32 [B, H, W, C] device buffer with
+//     atomicAdd, then cast_bf16_kernel rounds the sums once to the map's
+//     type (bf16 maps only; an f32 map's gradient is the buffer itself). At
+//     the training shape its 154 M device-memory atomics land on 0.7 M
+//     cells, ~220 an address, and the L2's atomic units, not HBM, set its
+//     pace.
 //
-// nm_roi_align_bwd_slice gives the dispatch: the shared-memory kernel at the
-// widest slice whose accumulator fits, else the scatter path. Both paths
-// sum in an order that changes from run to run (locks and atomics), so two
-// runs agree to f32 rounding, not bit for bit.
+// nm_roi_align_bwd_smem_fits gives the dispatch: the shared-memory kernel
+// wherever its accumulator fits, else the scatter path. Both paths sum in
+// an order that changes from run to run (locks and atomics), so two runs
+// agree to f32 rounding, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -489,26 +488,22 @@ __global__ void cast_bf16_kernel(const float* __restrict__ in,
   }
 }
 
-// roi_align_bwd_smem_kernel's settings for a channel slice of CS (8, 16
-// or 32): its threads, 16 warps (two blocks an SM) or 32 at CS = 32 (one
-// block an SM: the 175 KB accumulator of a 37x37 map leaves no room for a
-// second); the floats a sample takes in a warp's row buffer (CS and 4 of
-// padding: the 16-byte reads of 8 lanes at 8 different samples hit 8
-// distinct bank groups).
-template <int CS>
-struct BwdCfg {
-  static constexpr int kThreads = CS == 32 ? 1024 : 512;
-  static constexpr int kWarps = kThreads / 32;
-  static constexpr int kBlocksPerSM = CS == 32 ? 1 : 2;
-  static constexpr int kBufStride = CS + 4;
-};
-// The slices the dispatch tries, widest first (chip_smoke.py phase 3 times
-// each at the training shape); the most samples a crop row has (its 2 *
-// kBwdRow x cells fill a warp's 16 cell lanes); the most RoIs of an image a
-// block sorts by height; the most shared memory a block can opt into on
-// Hopper.
-constexpr int kBwdSlices[] = {32, 16, 8};
+// roi_align_bwd_smem_kernel's settings: its channel slice; its threads, 32
+// warps (one block an SM: the 175 KB accumulator of a 37x37 map leaves no
+// room for a second); the floats a sample takes in a warp's row buffer (the
+// slice and 4 of padding: the 16-byte reads of 8 lanes at 8 different
+// samples hit 8 distinct bank groups); the most samples a crop row has (its
+// 2 * kBwdRow x cells fill a warp's 16 cell lanes); the cells a lock covers
+// in a map row and the most bands a row has (a row pair of a RoI then
+// needs at most 32 locks, one a lane); the most RoIs of an image a block
+// sorts by height; the most shared memory a block can opt into on Hopper.
+constexpr int kBwdCS = 32;
+constexpr int kBwdSmemThreads = 1024;
+constexpr int kBwdWarps = kBwdSmemThreads / 32;
+constexpr int kBwdBufStride = kBwdCS + 4;
 constexpr int kBwdRow = 8;
+constexpr int kBwdBand = 8;
+constexpr int kBwdMaxBands = 16;
 constexpr int kBwdSortMax = 256;
 constexpr size_t kSmemOptin = 232448;
 
@@ -519,39 +514,32 @@ struct XCell {
   float wa, wb;
 };
 
-// The bands of x cells that a lock of roi_align_bwd_smem_kernel covers in
-// a map row: of 8 cells, or wider where a row has more than 16 of them (a
-// row pair of a RoI then needs at most 32 locks, one a lane).
-__host__ __device__ inline int bwd_band(int W) { return W > 128 ? (W + 15) / 16 : 8; }
-__host__ __device__ inline int bwd_bands(int W) { return (W + bwd_band(W) - 1) / bwd_band(W); }
+__host__ __device__ inline int bwd_bands(int W) { return (W + kBwdBand - 1) / kBwdBand; }
 
-// The shared memory of roi_align_bwd_smem_kernel at slice cs: the f32
-// accumulator [cells][cs], a lock per (map row, band), the RoIs' sort keys and
-// order [kBwdSortMax], and each warp's row of g [P][cs + 4] (f32), taps
+// The shared memory of roi_align_bwd_smem_kernel: the f32 accumulator
+// [cells][kBwdCS], a lock per (map row, band), the RoIs' sort keys and order
+// [kBwdSortMax], and each warp's row of g [P][kBwdBufStride] (f32), taps
 // [2P] and x cells [2 * kBwdRow] of its RoI.
-size_t bwd_smem_bytes(int H, int W, int P, int cs) {
-  const size_t acc = ((size_t)H * W * cs * sizeof(float) + 15) & ~(size_t)15;
+size_t bwd_smem_bytes(int H, int W, int P) {
+  const size_t acc = ((size_t)H * W * kBwdCS * sizeof(float) + 15) & ~(size_t)15;
   const size_t locks = ((size_t)H * bwd_bands(W) * sizeof(int) + 15) & ~(size_t)15;
-  const int warps = cs == 32 ? BwdCfg<32>::kWarps : BwdCfg<16>::kWarps;
   return acc + locks + kBwdSortMax * (sizeof(float) + sizeof(int)) +
-         (size_t)warps * (P * (cs + 4) * sizeof(float) + 2 * P * sizeof(Tap) +
-                          2 * kBwdRow * sizeof(XCell));
+         (size_t)kBwdWarps * (P * kBwdBufStride * sizeof(float) +
+                              2 * P * sizeof(Tap) + 2 * kBwdRow * sizeof(XCell));
 }
 
 // The word of channel ch of a cell in the accumulator: 16-byte chunks
 // swizzled by the cell, so that a quarter warp's 16-byte accesses (4
 // neighbouring cells x 2 channel halves) hit 8 distinct bank groups.
-template <int CS>
 __device__ __forceinline__ int acc_word(int cell, int ch) {
-  const int swz = CS == 32 ? cell & 7 : CS == 16 ? (cell >> 1) & 3 : (cell >> 2) & 1;
-  return cell * CS + (((ch >> 2) ^ swz) << 2) + (ch & 3);
+  return cell * kBwdCS + (((ch >> 2) ^ (cell & 7)) << 2) + (ch & 3);
 }
 
 // grid: B * slices blocks, one per (image b, channel slice s); the block
 // owns out[b, :, :, s*CS : s*CS + cw] as an f32 accumulator in shared
 // memory. Hopper has no native shared-memory f32 add (ptxas makes
 // atomicAdd a compare-and-swap loop, about one add a clock an SM), so the
-// accumulator takes plain adds under a lock per map row.
+// accumulator takes plain adds under a lock per (map row, band of cells).
 //
 // The block's RoIs are sorted by height on the map (invalid ones last), and
 // each warp takes a run of them, so that warps running at one time mostly
@@ -568,20 +556,19 @@ __device__ __forceinline__ int acc_word(int cell, int ch) {
 // words.
 //
 // A warp's run is a chain of dependent steps, so the time of a block is
-// about that of its longest run: a wider slice halves the runs at the price
-// of one block an SM.
+// about that of its longest run: the 32-channel slice gives each image's
+// RoIs to 32 warps, at the price of one block an SM.
 // vec: 16-byte loads of g are aligned; vec_out: 16-byte stores of out are.
-template <typename TG, typename TO, int CS>
-__global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM)
+template <typename TG, typename TO>
+__global__ void __launch_bounds__(kBwdSmemThreads, 1)
     roi_align_bwd_smem_kernel(const TG* __restrict__ g,
                               const float* __restrict__ rois,
                               const uint8_t* __restrict__ valid,
                               TO* __restrict__ out, int H, int W, int C,
                               int R, int P, float scale, int vec,
                               int vec_out) {
-  constexpr int kThreadsB = BwdCfg<CS>::kThreads;
-  constexpr int kWarpsB = BwdCfg<CS>::kWarps;
-  constexpr int BS = BwdCfg<CS>::kBufStride;
+  constexpr int CS = kBwdCS;
+  constexpr int BS = kBwdBufStride;
   constexpr int CL = CS / 2;         // channels a lane
   constexpr int V = Vec16<TG>::VEC;  // values of g in 16 bytes
   constexpr int U = CS / V;          // 16-byte pieces of a sample's slice
@@ -595,17 +582,17 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
   float* acc = reinterpret_cast<float*>(smem_raw);  // [cells][CS], swizzled
   unsigned char* rest =
       smem_raw + (((size_t)cells * CS * sizeof(float) + 15) & ~(size_t)15);
-  const int band = bwd_band(W), nbands = bwd_bands(W);
+  const int nbands = bwd_bands(W);
   int* locks = reinterpret_cast<int*>(rest);  // [H][nbands]
   rest += ((size_t)H * nbands * sizeof(int) + 15) & ~(size_t)15;
   float* keys = reinterpret_cast<float*>(rest);  // [kBwdSortMax]
   int* order = reinterpret_cast<int*>(keys + kBwdSortMax);
   rest += kBwdSortMax * (sizeof(float) + sizeof(int));
   float* buf = reinterpret_cast<float*>(rest) + warp * P * BS;  // [P][BS]
-  rest += (size_t)kWarpsB * P * BS * sizeof(float);
+  rest += (size_t)kBwdWarps * P * BS * sizeof(float);
   Tap* taps = reinterpret_cast<Tap*>(rest) + warp * 2 * P;  // [y, x][P]
   XCell* xcs = reinterpret_cast<XCell*>(reinterpret_cast<Tap*>(rest) +
-                                        kWarpsB * 2 * P) +
+                                        kBwdWarps * 2 * P) +
                warp * 2 * kBwdRow;
   const int e = lane >> 1;   // this lane's x cell of a RoI
   const int cg = lane & 1;   // this lane's channel half
@@ -616,12 +603,12 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
   const int c0 = s * CS;
   const int cw = min(CS, C - c0);
   const int nc = min(CL, cw - cg * CL);  // this lane's channels (<= 0: none)
-  for (int i = t; i < cells * CS; i += kThreadsB) acc[i] = 0.f;
-  for (int i = t; i < H * nbands; i += kThreadsB) locks[i] = 0;
+  for (int i = t; i < cells * CS; i += kBwdSmemThreads) acc[i] = 0.f;
+  for (int i = t; i < H * nbands; i += kBwdSmemThreads) locks[i] = 0;
   // the RoIs in order of their height on the map (invalid ones last)
   const bool sorted = R <= kBwdSortMax;
   if (sorted) {
-    for (int r = t; r < R; r += kThreadsB) {
+    for (int r = t; r < R; r += kBwdSmemThreads) {
       const int64_t roi = (int64_t)b * R + r;
       const float k = rois[roi * 4 + 1] + rois[roi * 4 + 3];
       keys[r] = valid[roi] && k == k ? k : INFINITY;
@@ -629,7 +616,7 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
   }
   __syncthreads();
   if (sorted) {
-    for (int r = t; r < R; r += kThreadsB) {
+    for (int r = t; r < R; r += kBwdSmemThreads) {
       const float k = keys[r];
       int rank = 0;
       for (int q = 0; q < R; ++q) {
@@ -641,7 +628,7 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
     __syncthreads();
   }
 
-  const int run = (R + kWarpsB - 1) / kWarpsB;
+  const int run = (R + kBwdWarps - 1) / kBwdWarps;
   const int i_end = min(R, (warp + 1) * run);
   for (int i = warp * run; i < i_end; ++i) {  // the same for the warp
     const int r = sorted ? order[i] : i;
@@ -695,9 +682,9 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
     XCell xc{0, 0, -1, 0.f, 0.f};
     if (on) xc = xcs[e];
     // the bands of the RoI's x cells, where its rows' locks lie
-    const int blo = __reduce_min_sync(kAll, e < n ? xc.x : W) / band;
-    const int nbw = __reduce_max_sync(kAll, e < n ? xc.x : 0) / band - blo + 1;
-    unsigned int backoff = 2654435761u * (blockIdx.x * kWarpsB + warp + 1);
+    const int blo = __reduce_min_sync(kAll, e < n ? xc.x : W) / kBwdBand;
+    const int nbw = __reduce_max_sync(kAll, e < n ? xc.x : 0) / kBwdBand - blo + 1;
+    unsigned int backoff = 2654435761u * (blockIdx.x * kBwdWarps + warp + 1);
 
     // the rows of g: lane l loads pieces k = l * LD + j (16 bytes of
     // sample k / U, channels (k % U) * V on) one row ahead, and at the
@@ -807,7 +794,7 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
 #pragma unroll
             for (int c = 0; c < CL / 4; ++c) {
               float4* a = reinterpret_cast<float4*>(
-                  acc + acc_word<CS>(cell, cg * CL + 4 * c));
+                  acc + acc_word(cell, cg * CL + 4 * c));
               float4 q = *a;
               q.x += wy * sum[4 * c];
               q.y += wy * sum[4 * c + 1];
@@ -818,7 +805,7 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
           } else {
 #pragma unroll
             for (int c = 0; c < CL; ++c) {
-              if (c < nc) acc[acc_word<CS>(cell, cg * CL + c)] += wy * sum[c];
+              if (c < nc) acc[acc_word(cell, cg * CL + c)] += wy * sum[c];
             }
           }
         }
@@ -837,14 +824,14 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
   TO* dst = out + (int64_t)b * cells * C + c0;
   if (vec_out) {  // cw is a multiple of OVEC (4 or 8 channels)
     const int nv = cw / OVEC;
-    for (int i = t; i < cells * nv; i += kThreadsB) {
+    for (int i = t; i < cells * nv; i += kBwdSmemThreads) {
       const int cell = i / nv;
       const int ch = (i - cell * nv) * OVEC;
       float f[OVEC];
 #pragma unroll
       for (int u = 0; u < OVEC; u += 4) {
         const float4 q =
-            *reinterpret_cast<const float4*>(acc + acc_word<CS>(cell, ch + u));
+            *reinterpret_cast<const float4*>(acc + acc_word(cell, ch + u));
         f[u] = q.x;
         f[u + 1] = q.y;
         f[u + 2] = q.z;
@@ -854,110 +841,87 @@ __global__ void __launch_bounds__(BwdCfg<CS>::kThreads, BwdCfg<CS>::kBlocksPerSM
           Vec16<TO>::pack(f);
     }
   } else {
-    for (int i = t; i < cells * cw; i += kThreadsB) {
+    for (int i = t; i < cells * cw; i += kBwdSmemThreads) {
       const int cell = i / cw;
       const int ch = i - cell * cw;
-      store_f(dst + (int64_t)cell * C + ch, acc[acc_word<CS>(cell, ch)]);
+      store_f(dst + (int64_t)cell * C + ch, acc[acc_word(cell, ch)]);
     }
   }
 }
 
-// The channel slice of roi_align_bwd_smem_kernel for these shapes: the
-// widest of kBwdSlices whose accumulator fits, else 0 (the scatter path;
-// also where P exceeds the kBwdRow samples a warp holds).
-int bwd_slice(int H, int W, int P) {
-  if (P > kBwdRow) return 0;
-  for (int cs : kBwdSlices) {
-    if (bwd_smem_bytes(H, W, P, cs) <= kSmemOptin) return cs;
-  }
-  return 0;
-}
-
-template <typename TG, typename TO, int CS>
-int launch_bwd_smem_cs(const TG* g, const float* rois, const uint8_t* valid,
-                       TO* out, int B, int H, int W, int C, int R, int P,
-                       float scale, cudaStream_t s) {
-  const size_t smem = bwd_smem_bytes(H, W, P, CS);
-  if (P > kBwdRow || smem > kSmemOptin) return (int)cudaErrorInvalidValue;
-  int sms = 0, per_sm = 0;
-  const cudaError_t err =
-      smem_launch_config<roi_align_bwd_smem_kernel<TG, TO, CS>,
-                         BwdCfg<CS>::kThreads>(smem, &sms, &per_sm);
-  if (err != cudaSuccess) return (int)err;
-  // 16-byte loads of g stay aligned where C is a multiple of 8 channels
-  const int vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(g) % 16 == 0);
-  constexpr int OVEC = Vec16<TO>::VEC;
-  const int vec_out = (C % OVEC == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const int64_t blocks = (int64_t)B * ((C + CS - 1) / CS);
-  roi_align_bwd_smem_kernel<TG, TO, CS>
-      <<<(unsigned int)blocks, BwdCfg<CS>::kThreads, smem, s>>>(
-      g, rois, valid, out, H, W, C, R, P, scale, vec, vec_out);
-  return (int)cudaGetLastError();
+// Whether roi_align_bwd_smem_kernel takes these shapes: its accumulator
+// fits, a row has at most kBwdMaxBands bands, P at most the kBwdRow samples
+// a warp holds. Else the scatter path.
+bool bwd_smem_fits(int H, int W, int P) {
+  return P <= kBwdRow && bwd_bands(W) <= kBwdMaxBands &&
+         bwd_smem_bytes(H, W, P) <= kSmemOptin;
 }
 
 template <typename TG, typename TO>
 int launch_bwd_smem(const TG* g, const float* rois, const uint8_t* valid,
                     TO* out, int B, int H, int W, int C, int R, int P,
-                    float scale, int cs, cudaStream_t s) {
-  switch (cs) {
-    case 32:
-      return launch_bwd_smem_cs<TG, TO, 32>(g, rois, valid, out, B, H, W, C,
-                                            R, P, scale, s);
-    case 16:
-      return launch_bwd_smem_cs<TG, TO, 16>(g, rois, valid, out, B, H, W, C,
-                                            R, P, scale, s);
-    case 8:
-      return launch_bwd_smem_cs<TG, TO, 8>(g, rois, valid, out, B, H, W, C,
-                                           R, P, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                    float scale, cudaStream_t s) {
+  if (!bwd_smem_fits(H, W, P)) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(H, W, P);
+  int sms = 0, per_sm = 0;
+  const cudaError_t err =
+      smem_launch_config<roi_align_bwd_smem_kernel<TG, TO>, kBwdSmemThreads>(
+          smem, &sms, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte loads of g stay aligned where C is a multiple of 8 channels
+  const int vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(g) % 16 == 0);
+  constexpr int OVEC = Vec16<TO>::VEC;
+  const int vec_out = (C % OVEC == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  const int64_t blocks = (int64_t)B * ((C + kBwdCS - 1) / kBwdCS);
+  roi_align_bwd_smem_kernel<TG, TO><<<(unsigned int)blocks, kBwdSmemThreads, smem, s>>>(
+      g, rois, valid, out, H, W, C, R, P, scale, vec, vec_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// The channel slice nm_roi_align_bwd's dispatch takes for these shapes:
-// the shared-memory kernel's cs, or 0 for the scatter path.
-extern "C" int nm_roi_align_bwd_slice(int H, int W, int P) {
-  return bwd_slice(H, W, P);
+// Whether nm_roi_align_bwd's dispatch takes the shared-memory kernel for
+// these shapes (1) or the scatter path (0).
+extern "C" int nm_roi_align_bwd_smem_fits(int H, int W, int P) {
+  return bwd_smem_fits(H, W, P);
 }
 
 // g [B, R, P, P, C] (f32, or bf16 when g_is_bf16), rois [B, R, 4] f32,
 // valid [B, R] uint8 -> out [B, H, W, C] (bf16 when out_is_bf16, else f32).
-// cs > 0: the shared-memory kernel at that channel slice (acc unused).
-// cs == 0: the scatter path into acc [B, H, W, C] f32 (zeroed here, then
-// the sums), out = acc rounded to bf16 when out_is_bf16 (else out is acc).
+// smem: the shared-memory kernel (acc unused). Else the scatter path into
+// acc [B, H, W, C] f32 (zeroed here, then the sums), out = acc rounded to
+// bf16 when out_is_bf16 (else out is acc).
 extern "C" int nm_roi_align_bwd(const void* g, const void* rois,
                                 const void* valid, void* acc, void* out,
                                 int B, int H, int W, int C, int R, int P,
                                 float scale, int g_is_bf16, int out_is_bf16,
-                                int cs, void* stream) {
+                                int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = (int64_t)B * H * W * C;
   if (n == 0) return 0;
-  if (P < 2 || P > kBwdMaxP || cs < 0) return (int)cudaErrorInvalidValue;
+  if (P < 2 || P > kBwdMaxP) return (int)cudaErrorInvalidValue;
   const float* r = static_cast<const float*>(rois);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
-  if (cs > 0) {
+  if (smem) {
     using bf16 = __nv_bfloat16;
     if (g_is_bf16 && out_is_bf16) {
       return launch_bwd_smem(static_cast<const bf16*>(g), r, v,
                              static_cast<bf16*>(out), B, H, W, C, R, P, scale,
-                             cs, s);
+                             s);
     }
     if (g_is_bf16) {
       return launch_bwd_smem(static_cast<const bf16*>(g), r, v,
                              static_cast<float*>(out), B, H, W, C, R, P, scale,
-                             cs, s);
+                             s);
     }
     if (out_is_bf16) {
       return launch_bwd_smem(static_cast<const float*>(g), r, v,
                              static_cast<bf16*>(out), B, H, W, C, R, P, scale,
-                             cs, s);
+                             s);
     }
     return launch_bwd_smem(static_cast<const float*>(g), r, v,
                            static_cast<float*>(out), B, H, W, C, R, P, scale,
-                           cs, s);
+                           s);
   }
   if (B > 65535) return (int)cudaErrorInvalidValue;
   float* a = static_cast<float*>(acc);

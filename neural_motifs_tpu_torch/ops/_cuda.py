@@ -34,10 +34,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # fmap, rois, valid, out, B, H, W, C, R, P, spatial_scale, is_bf16, stream
     "nm_roi_align_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # H, W, P -> the backward's channel slice (0: the scatter path)
-    "nm_roi_align_bwd_slice": (_I, _I, _I),
+    # H, W, P -> 1 where the backward takes its shared-memory kernel
+    "nm_roi_align_bwd_smem_fits": (_I, _I, _I),
     # g, rois, valid, acc (f32, the scatter path's), out, B, H, W, C, R, P,
-    # spatial_scale, g_is_bf16, out_is_bf16, slice, stream
+    # spatial_scale, g_is_bf16, out_is_bf16, smem, stream
     "nm_roi_align_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # boxes, valid, keep, lanes, K, thresh, stream
     "nm_perclass_nms": (_P, _P, _P, _I, _I, _F, _P),

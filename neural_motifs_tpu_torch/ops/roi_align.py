@@ -112,15 +112,14 @@ roi_align_cuda.launches = 0
 
 def roi_align_bwd_cuda(g: Tensor, rois: Tensor, valid: Tensor, fmap_shape: tuple,
                        fmap_dtype: torch.dtype, spatial_scale: float, *,
-                       _slice: int | None = None) -> Tensor:
+                       _scatter: bool = False) -> Tensor:
     """Launch the RoIAlign backward kernel: the gradient of the crops g
     [B,R,P,P,C] f32/bf16 on CUDA, rois [B,R,4], valid [B,R] bool -> the
     map's gradient [B,H,W,C] in `fmap_dtype` (summed in f32).
 
     The kernel is the shared-memory accumulator wherever it fits, else the
-    scatter kernel (`_bwd_slice`). `_slice`, for testing and timing the
-    paths side by side only: 0 forces the scatter path, 8, 16 or 32 the
-    shared-memory kernel at that channel slice."""
+    scatter kernel (`_bwd_smem_fits`). `_scatter`, for testing and timing
+    the two paths side by side only, forces the scatter path."""
     b, h, w, c = fmap_shape
     if g.dtype not in (torch.float32, torch.bfloat16) or g.dim() != 5 \
             or g.shape[0] != b or g.shape[-1] != c or g.shape[2] != g.shape[3] \
@@ -136,29 +135,28 @@ def roi_align_bwd_cuda(g: Tensor, rois: Tensor, valid: Tensor, fmap_shape: tuple
     valid = valid.contiguous()
     _cuda.require_cuda("roi_align_bwd_cuda", g, rois, valid)
     p = g.shape[2]
-    cs = _bwd_slice(h, w, p) if _slice is None else _slice
+    smem = not _scatter and _bwd_smem_fits(h, w, p)
     out = torch.empty((b, h, w, c), dtype=fmap_dtype, device=g.device)
     acc = out
-    if cs == 0 and fmap_dtype != torch.float32:
+    if not smem and fmap_dtype != torch.float32:
         acc = torch.empty((b, h, w, c), dtype=torch.float32, device=g.device)
     code = _cuda.lib().nm_roi_align_bwd(
         g.data_ptr(), rois.data_ptr(), valid.data_ptr(), acc.data_ptr(),
         out.data_ptr(), b, h, w, c, g.shape[1], p, float(spatial_scale),
-        int(g.dtype == torch.bfloat16), int(fmap_dtype == torch.bfloat16), cs,
+        int(g.dtype == torch.bfloat16), int(fmap_dtype == torch.bfloat16), int(smem),
         _cuda.stream_ptr(g.device))
     _cuda.check(code, "roi_align_bwd_cuda")
     roi_align_bwd_cuda.launches += 1
     return out
 
 
-def _bwd_slice(h: int, w: int, p: int) -> int:
-    """The channel slice of the backward's shared-memory kernel for an
-    [H, W] map and P x P crops, or 0 where its accumulator does not fit in
-    shared memory (the scatter path)."""
-    return _cuda.lib().nm_roi_align_bwd_slice(h, w, p)
-
-
 roi_align_bwd_cuda.launches = 0
+
+
+def _bwd_smem_fits(h: int, w: int, p: int) -> bool:
+    """Whether the backward takes its shared-memory kernel for an [H, W] map
+    and P x P crops; else the scatter path."""
+    return bool(_cuda.lib().nm_roi_align_bwd_smem_fits(h, w, p))
 
 
 def _roi_align_bwd_plain(g: Tensor, fmap: Tensor, rois: Tensor, valid: Tensor | None,

@@ -449,6 +449,7 @@ BWD_CASES = {
     "b1": ((1, 37, 37, 512, 64), "smem"),
     "c20": ((2, 37, 37, 20, 100), "smem"),        # C not a multiple of 16 bytes
     "large": ((1, 128, 128, 64, 100), "scatter"),  # no accumulator fits
+    "wide": ((1, 8, 160, 64, 50), "scatter"),      # rows over 128 cells
 }
 
 
@@ -458,21 +459,22 @@ BWD_CASES = {
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_roi_align_backward_paths_match_plain(np_rng, cuda, case, path, dtype):
     """Both paths of K1's backward, the one the dispatch takes and the
-    scatter path forced (`_slice=0`), against the plain version, with the
+    scatter path forced (`_scatter=True`), against the plain version, with the
     tolerances of test_roi_align_backward_kernel_matches_plain: the
     shared-memory kernel wherever its accumulator fits (37x37 maps at
     B = 6 and 1, C = 20: a slice narrower than the kernel's, not a multiple
-    of 16 bytes in bf16), the scatter path for a 128x128 map; g and the
-    map's gradient in `dtype`."""
+    of 16 bytes in bf16), the scatter path for a 128x128 map and for rows
+    wider than the kernel's locks cover; g and the map's gradient in
+    `dtype`."""
     (b, h, w, c, r), taken = BWD_CASES[case]
-    assert (ra._bwd_slice(h, w, 7) > 0) == (taken == "smem")
+    assert ra._bwd_smem_fits(h, w, 7) == (taken == "smem")
     fmap = T(np_rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
     rois = T(rand_boxes(np_rng, (b, r), 16 * max(h, w)) - 50.0).to(cuda)
     valid = T(np_rng.uniform(0, 1, (b, r)) < 0.9).to(cuda)
     g = T(np_rng.standard_normal((b, r, 7, 7, c)).astype(np.float32)).to(cuda).to(dtype)
     before = ra.roi_align_bwd_cuda.launches
     got = ra.roi_align_bwd_cuda(g, rois, valid, (b, h, w, c), dtype, 1 / 16,
-                                _slice=0 if path == "scatter" else None)
+                                _scatter=path == "scatter")
     torch.cuda.synchronize()
     assert ra.roi_align_bwd_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, h, w, c)
@@ -487,12 +489,10 @@ def test_roi_align_backward_paths_match_plain(np_rng, cuda, case, path, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cs", [8, 16, 32])
-def test_roi_align_backward_slices_edge_rois(np_rng, cuda, cs, dtype):
-    """The shared-memory kernel at each channel slice on RoIs of every
-    kind: random ones, boxes with x2 < x1 or y2 < y1 (their samples walk
-    the map backwards), of zero width or height, wholly outside, sampling
-    on G-1 exactly, tiny ones whose samples share cells, and invalid ones;
+def test_roi_align_backward_smem_kernel_edge_rois(np_rng, cuda, dtype):
+    """The shared-memory kernel on RoIs of every kind: random ones, boxes
+    with x2 < x1 or y2 < y1 (their samples walk the map backwards), of zero
+    width or height, wholly outside, sampling on G-1 exactly, tiny ones whose samples share cells, and invalid ones;
     C = 40 (a slice of 32 leaves a tail of 8), against the plain version
     within the tolerances of test_roi_align_backward_kernel_matches_plain."""
     b, h, w, c = 2, 37, 37, 40
@@ -508,7 +508,8 @@ def test_roi_align_backward_slices_edge_rois(np_rng, cuda, cs, dtype):
     fmap = T(np_rng.standard_normal((b, h, w, c)).astype(np.float32)).to(cuda)
     r, v = T(rois).to(cuda), T(valid).to(cuda)
     g = T(np_rng.standard_normal((b, 120, 7, 7, c)).astype(np.float32)).to(cuda).to(dtype)
-    got = ra.roi_align_bwd_cuda(g, r, v, (b, h, w, c), dtype, 1 / 16, _slice=cs)
+    assert ra._bwd_smem_fits(h, w, 7)
+    got = ra.roi_align_bwd_cuda(g, r, v, (b, h, w, c), dtype, 1 / 16)
     exp = ra._roi_align_bwd_plain(g.float(), fmap, r, v, 1 / 16)
     scale = exp.abs().max().item()
     assert scale > 0

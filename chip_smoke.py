@@ -18,8 +18,13 @@ script exits non-zero without a result line):
                 PIL's output (and to PIL where installed) and to its plain
                 version.
   3. kernels  - K1 RoIAlign and its backward, K2 per-class NMS, K3 greedy
-                NMS against their plain PyTorch versions on the card at the
-                main paths' shapes (K1 in f32 and bf16 at R = 1000, 64, 512;
+                NMS, K4 the highway-LSTM layer against their plain PyTorch
+                versions on the card at the main paths' shapes (K4 at the
+                benchmark cells' B 16, T 64, H 512 on the object stack's
+                4424 inputs and 2 layers and the edge stack's 4808 and 4,
+                every row 64 long, then lengths 0 / 1 / 64 / random with
+                dropout masks; within 1e-4 of the eager loop, zeros at
+                padded positions; K1 in f32 and bf16 at R = 1000, 64, 512;
                 K1's backward in f32 and bf16 at detector training's
                 [6, 37, 37, 512] map and 256 RoIs an image, both the
                 shared-memory kernel the dispatch takes and the scatter path
@@ -62,7 +67,8 @@ script exits non-zero without a result line):
                 classes, 51 predicates, hidden 512, pooling 4096, nl_obj 2,
                 nl_edge 4, top-64 objects, 1024 pairs) with seeded random
                 weights answers 3 requests of 4 images; every kernel must
-                have launched during them, 4 / 1 / 1 times a request; then
+                have launched during them, 4 / 1 / 1 / 6 times a request
+                (K1 / K2 / K3 / K4; 0 of K1's backward); then
                 the device time of one request (torch.profiler), its busy
                 share of the median latency, and a synced split of one
                 request by module (trunk, rest of the detector, object
@@ -234,8 +240,8 @@ script exits non-zero without a result line):
                 within 1e-5.
  20. resnet request - phase 5 for the ResNet-101 C4 MotifNet at the bench
                 widths with pooling and object dims 2048: 3 requests,
-                launches 4 / 1 / 1 a request, latency, peak memory, one
-                request's kernels (K1-K3 apart), its busy share and its
+                launches 4 / 1 / 1 / 6 a request, latency, peak memory, one
+                request's kernels (K1-K4 apart), its busy share and its
                 synced split by module.
  21. resnet train and eval - phase 16 for train_detector -resnet (2
                 warm-up and 3 timed steps, the validation, the checkpoint
@@ -265,7 +271,7 @@ script exits non-zero without a result line):
                 end to end on the host clock (decode, resize, collate,
                 model, JSON), the decode + resize time an image and its
                 share of the run, peak memory, launches exactly K1 4, K2 1,
-                K3 1 a batch; every record checked (one a listed image,
+                K3 1, K4 6 a batch; every record checked (one a listed image,
                 boxes inside the image, relations between listed objects,
                 scores in [0, 1]). The rate over 3 runs with the decode
                 and 3 with the images decoded and resized before the run,
@@ -389,6 +395,7 @@ from neural_motifs_tpu_torch.models.detector import ObjectDetector
 from neural_motifs_tpu_torch.models.rel_model import RelModel, disable_dropout_
 from neural_motifs_tpu_torch.models.rel_model_stanford import RelModelStanford
 from neural_motifs_tpu_torch.ops import _cuda
+from neural_motifs_tpu_torch.ops import highway_lstm as hl
 from neural_motifs_tpu_torch.ops import nms, quant
 from neural_motifs_tpu_torch.ops import roi_align as ra
 from neural_motifs_tpu_torch.ops.sampling import AnchorTargets, DetSample
@@ -432,13 +439,17 @@ TRAIN_ARGS = ("-model motifnet -order leftright -nl_obj 2 -nl_edge 4 "
               "-clip 5").split()
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10   # steps of phase 9
 TRAIN_VAL_IMAGES = 12
-# the kernels' launches (K1, K2, K3, K1's backward) on each path: 4 / 1 / 1
-# a SGDet request; over the 32 val images of phase 7 (8 batches); over the
-# 12 training steps of phase 9 (relation training never differentiates
-# RoIAlign: the detector is frozen)
-REQUEST_LAUNCHES = (4, 1, 1, 0)
-EVAL_LAUNCHES = {"predcls": (80, 0, 0, 0), "sgcls": (80, 0, 0, 0), "sgdet": (32, 8, 8, 0)}
-TRAIN_LAUNCHES = {"sgcls": (36, 0, 0, 0), "sgdet": (36, 12, 12, 0)}
+# the kernels' launches (K1, K2, K3, K1's backward, K4: KERNELS' order) on
+# each path: 4 / 1 / 1 / 0 / 6 a SGDet request; over the 32 val images of
+# phase 7 (8 batches); over the 12 training steps of phase 9 (relation
+# training never differentiates RoIAlign: the detector is frozen). K4 runs
+# once a highway-LSTM layer (nl_obj + nl_edge a forward) wherever autograd
+# does not record: the eval forward and calibration's no_grad training
+# forward; never in a training step
+REQUEST_LAUNCHES = (4, 1, 1, 0, 6)
+EVAL_LAUNCHES = {"predcls": (80, 0, 0, 0, 48), "sgcls": (80, 0, 0, 0, 48),
+                 "sgdet": (32, 8, 8, 0, 48)}
+TRAIN_LAUNCHES = {"sgcls": (36, 0, 0, 0, 0), "sgdet": (36, 12, 12, 0, 0)}
 # the Stanford model (phases 10-14): scripts/train_stanford.sh's flags; its
 # GRU width 512 and union width 4096 are fixed, obj_dim 4096 is the default
 STANFORD_ARGS = "-model stanford -b 4".split()
@@ -446,21 +457,21 @@ STANFORD_TRAIN_ARGS = "-model stanford -b 6 -lr 1e-3 -clip 5".split()
 STANFORD_SMALL_ARGS = "-model stanford -obj_dim 128 -b 2 -dtype float32 -max_gt_boxes 16".split()
 # a Stanford SGDet request: K3 twice, the RPN's proposals and the decode's
 # per-class NMS over 4 x 151 lanes of the 64 objects (exact: 256 >= 64)
-STANFORD_REQUEST_LAUNCHES = (4, 1, 2, 0)
-STANFORD_EVAL_LAUNCHES = {"predcls": (80, 0, 0, 0), "sgcls": (80, 0, 0, 0),
-                          "sgdet": (32, 8, 16, 0)}
+STANFORD_REQUEST_LAUNCHES = (4, 1, 2, 0, 0)
+STANFORD_EVAL_LAUNCHES = {"predcls": (80, 0, 0, 0, 0), "sgcls": (80, 0, 0, 0, 0),
+                          "sgdet": (32, 8, 16, 0, 0)}
 # the frequency baseline's detectors over the 32 val images (8 batches of
 # 4): the gtbox classifier RoIAligns once a batch; the sgdet detector
 # RoIAligns its proposals, and runs its RPN NMS and filter_det
-FREQ_LAUNCHES = {"sgcls": (8, 0, 0, 0), "sgdet": (8, 8, 8, 0)}
+FREQ_LAUNCHES = {"sgcls": (8, 0, 0, 0, 0), "sgdet": (8, 8, 8, 0, 0)}
 # detector pretraining (phase 16): scripts/pretrain_detector.sh's flags
 # with the clip of the JAX entry point's default; each training step
 # RoIAligns its sampled RoIs (K1) and differentiates them (K1's backward)
 # and runs the RPN's proposal NMS (K3); each validation batch is the
 # refinerels path (K1, K2, K3)
 DET_TRAIN_ARGS = "-b 6 -lr 1e-3 -clip 5".split()
-DET_STEP_LAUNCHES = (1, 0, 1, 1)
-DET_VAL_BATCH_LAUNCHES = (1, 1, 1, 0)
+DET_STEP_LAUNCHES = (1, 0, 1, 1, 0)
+DET_VAL_BATCH_LAUNCHES = (1, 1, 1, 0, 0)
 DET_VAL_IMAGES = 12
 # published weights and proposals (phase 17): precomputed proposals an
 # image (VG's proposals.h5 holds up to 2000, the collate's budget);
@@ -474,10 +485,10 @@ REFINE_ARGS = ("-m sgdet -model motifnet -order leftright -nl_obj 2 -nl_edge 4 "
                "-hidden_dim 512 -pooling_dim 4096 -use_bias -b 6 -lr 1e-4 -clip 5 "
                "-proposals").split()
 REF_EVAL_IMAGES = 16   # the -test split of phase 17 (4 batches of 4)
-REF_EVAL_LAUNCHES = {"sgcls": (40, 0, 0, 0), "sgdet": (16, 4, 4, 0),
-                     "stanford sgdet": (16, 4, 8, 0)}
+REF_EVAL_LAUNCHES = {"sgcls": (40, 0, 0, 0, 24), "sgdet": (16, 4, 4, 0, 24),
+                     "stanford sgdet": (16, 4, 8, 0, 0)}
 REF_TRAIN_WARMUP, REF_TRAIN_TIMED = 2, 3
-REF_STEP_LAUNCHES = (3, 1, 1, 0)
+REF_STEP_LAUNCHES = (3, 1, 1, 0, 0)
 # data parallelism (phase 18): (a) phase 16's detector-pretraining config
 # for DP_STEPS steps in an NCCL group of one rank (each step K1, K1's
 # backward and K3 once); (b) two gloo ranks sharing the card against one
@@ -498,10 +509,10 @@ RESNET_TRAIN_ARGS = TRAIN_ARGS + RESNET_WIDTHS
 RESNET_DET_ARGS = DET_TRAIN_ARGS + ["-resnet"]
 RESNET_DET_WARMUP, RESNET_DET_TIMED = 2, 3
 RESNET_TRAIN_WARMUP, RESNET_TRAIN_TIMED = 1, 2
-RESNET_EVAL_LAUNCHES = {"sgcls": (80, 0, 0, 0), "sgdet": (32, 8, 8, 0)}
-RESNET_TRAIN_LAUNCHES = {"sgcls": (9, 0, 0, 0)}
+RESNET_EVAL_LAUNCHES = {"sgcls": (80, 0, 0, 0, 48), "sgdet": (32, 8, 8, 0, 48)}
+RESNET_TRAIN_LAUNCHES = {"sgcls": (9, 0, 0, 0, 0)}
 DP_RANKS, DP_IMAGES = 2, 4
-DP_SGDET_LAUNCHES = (3, 1, 1, 0)
+DP_SGDET_LAUNCHES = (3, 1, 1, 0, 0)
 DP_INIT_TIMEOUT_S, DP_JOIN_TIMEOUT_S = 60, 240
 # the JAX package's data-parallel tolerances (tests/test_dp_and_loader.py)
 # and the gradients' of tests/test_torch_train_step.py (of each leaf's max)
@@ -512,12 +523,12 @@ DP_LOSS_RTOL, DP_PARAM_TOL, DP_BN_TOL, DP_GRAD_TOL = 1e-5, (2e-4, 2e-5), (1e-4, 
 # per_class_topk >= 16), in sgdet and in sgcls, whose relation loss reaches
 # the union tower (a random detector's sgdet sample holds no pair); (b) the full shapes at data 1 x model 2 (the eval forward's 1024
 # pairs take two union chunks). Launches a rank, by part (K1, K2, K3, K1's
-# backward): each model rank runs the whole detector
+# backward, K4): each model rank runs the whole detector and context
 TP_TINY_RANKS = 4
 TP_FULL_GRID = (1, 2)
-TP_TINY_LAUNCHES = {"sgdet": {"train": (3, 0, 2, 0), "eval": (3, 0, 2, 0)},
-                    "sgcls": {"train": (3, 0, 0, 0), "eval": (3, 0, 0, 0)}}
-TP_FULL_LAUNCHES = {"train": (3, 1, 1, 0), "eval": (4, 1, 1, 0)}
+TP_TINY_LAUNCHES = {"sgdet": {"train": (3, 0, 2, 0, 0), "eval": (3, 0, 2, 0, 2)},
+                    "sgcls": {"train": (3, 0, 0, 0, 0), "eval": (3, 0, 0, 0, 2)}}
+TP_FULL_LAUNCHES = {"train": (3, 1, 1, 0, 0), "eval": (4, 1, 1, 0, 6)}
 TP_LOSS_TOL = (1e-5, 1e-6)   # tests/test_parallel.py's, with atol
 TP_JOIN_TIMEOUT_S = 300
 # the published MotifNet widths of a reference vgrel checkpoint, and phase
@@ -539,7 +550,7 @@ PREDICT_FIXTURES = (("landscape.jpg", 600, 800), ("portrait.jpg", 800, 600),
 PREDICT_REF_SCALE = 128
 PREDICT_IMAGES = 32
 PREDICT_ROUNDS = 3   # timed runs with the decode, and as many without it
-PREDICT_BATCH_LAUNCHES = (4, 1, 1, 0)
+PREDICT_BATCH_LAUNCHES = (4, 1, 1, 0, 6)
 # phase 2: a seeded [600, 800, 3] image resized to [444, 592]; the sha256 of
 # PIL's BILINEAR resize of it (PIL 12.1.0), which the host runtime's resize
 # must give on a host with or without PIL
@@ -559,6 +570,10 @@ KERNELS = {
     "roi_align_bwd": dict(
         wrapper=ra.roi_align_bwd_cuda, source="neural_motifs_tpu_torch/csrc/roi_align.cu",
         replaces="neural_motifs_tpu/ops/pallas_roi_align.py:170", main_path="detector train"),
+    # the JAX package runs this recurrence as a lax.scan: K4 replaces none
+    "highway_lstm": dict(
+        wrapper=hl.highway_lstm_cuda, source="neural_motifs_tpu_torch/csrc/highway_lstm.cu",
+        replaces=None, main_path="motifnet request"),
 }
 
 
@@ -639,6 +654,13 @@ PEAK_F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 IOU_OPS = 16
 # f32 operations of one RoIAlign output value: three lerps w0 * a + w1 * b
 LERP_OPS = 9
+# substrings of the kernels' names in a profile: K1 (and its backward), K2,
+# K3's mask and scan kernels, K4
+DEVICE_NAMES = ("roi_align", "perclass_nms", "nms_mask", "nms_scan", "highway_lstm")
+# K4 at the benchmark cells' shapes: 16 images of 64 objects, hidden 512;
+# the object stack (2 layers on 4424 inputs) and the edge stack (4 on 4808)
+LSTM_B, LSTM_T, LSTM_H = 16, 64, 512
+LSTM_STACKS = {"obj": (4424, 2), "edge": (4808, 4)}
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -1092,6 +1114,94 @@ def check_roi_align_bwd_resnet(dev, gen) -> dict:
     return res
 
 
+def lstm_stack(gen, dev, d_in: int, layers: int, h: int = LSTM_H) -> list:
+    """A highway-LSTM stack's params: W ~ U(-1, 1) / sqrt(fan-in), biases
+    U(-0.1, 0.1) with the forget gate's +1."""
+    def u(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * 2 - 1
+    params = []
+    for layer in range(layers):
+        k = d_in if layer == 0 else h
+        bias = u(5 * h) * 0.1
+        bias[h:2 * h] += 1.0
+        params.append({"w_i": u(k, 6 * h) / math.sqrt(k), "w_h": u(h, 5 * h) / math.sqrt(h),
+                       "bias": bias})
+    return params
+
+
+def lstm_bound(lengths, layers: int, b: int = LSTM_B, t: int = LSTM_T,
+               h: int = LSTM_H) -> tuple:
+    """K4's bound over a stack: operations, each row's real steps of the
+    recurrent product (2 * H * 5H a row-step); bytes, gi read, W_h and the
+    bias read, the output written, a layer each."""
+    n_ops = layers * 2 * int(lengths.sum()) * h * 5 * h
+    n_bytes = layers * 4 * (b * t * 6 * h + h * 5 * h + 5 * h + b * t * h)
+    return bound(n_bytes, n_ops)
+
+
+def check_highway_lstm(dev, gen) -> dict:
+    """K4 against the eager loop at LSTM_STACKS: every row 64 long (sgdet),
+    timed; then lengths 0, 1, 64 and random with dropout masks, in both
+    directions. The time of a stack's K4 launches alone (on its layers'
+    precomputed input products), of the whole stack (the input GEMMs
+    included) and of the eager loop."""
+    res = {}
+    errs = []
+    for name, (d_in, layers) in LSTM_STACKS.items():
+        params = lstm_stack(gen, dev, d_in, layers)
+        x = torch.randn(LSTM_B, LSTM_T, d_in, generator=gen, device=dev)
+        mixed = torch.randint(0, LSTM_T + 1, (LSTM_B,), generator=gen, device=dev)
+        mixed[:3] = torch.tensor([LSTM_T, 0, 1], device=dev)
+        masks = [(torch.rand(LSTM_B, LSTM_H, generator=gen, device=dev) < 0.9).float() / 0.9
+                 for _ in range(layers)]
+        for lengths, dm in ((torch.full((LSTM_B,), LSTM_T, device=dev), None), (mixed, masks)):
+            with torch.inference_mode():
+                got = hl.alternating_highway_lstm(params, x, lengths, dm)
+                exp = hl._alternating(params, x, lengths, dm, kernel=False)
+            pad = torch.arange(LSTM_T, device=dev)[None, :] >= lengths[:, None]
+            require(not got[pad].any(), f"K4 {name}: a padded position is not 0")
+            errs.append((got - exp).abs().max().item())
+        lengths = torch.full((LSTM_B,), LSTM_T, device=dev)
+        with torch.inference_mode():
+            gis, out = [], x
+            for layer, p in enumerate(params):
+                gis.append(out @ p["w_i"])
+                out = hl.highway_lstm_cuda(gis[-1], p["w_h"], p["bias"], lengths,
+                                           reverse=layer % 2 == 1)
+
+            def k4():
+                for layer, (p, gi) in enumerate(zip(params, gis)):
+                    hl.highway_lstm_cuda(gi, p["w_h"], p["bias"], lengths,
+                                         reverse=layer % 2 == 1)
+
+            t_k = time_ms(k4)
+            t_s = pipelined_ms(k4)
+            t_stack = time_ms(lambda: hl.alternating_highway_lstm(params, x, lengths))
+            t_p = time_ms(lambda: hl._alternating(params, x, lengths, None, kernel=False),
+                          reps=3)
+            dev_t = device_ms(k4, ("highway_lstm",))
+        b_ms, b_by = lstm_bound(lengths, layers)
+        res[name] = dict(shape=[LSTM_B, LSTM_T, d_in, LSTM_H], layers=layers, ms=t_k,
+                         pipelined_ms=t_s, stack_ms=t_stack, plain_ms=t_p,
+                         bound_ms=b_ms, bound_by=b_by,
+                         device_ms=dev_t and dev_t["highway_lstm"],
+                         share_of_bound=b_ms / t_k)
+        k = res[name]
+        print(f"K4 highway_lstm {name} stack [{LSTM_B}, {LSTM_T}] D {d_in} H {LSTM_H}, "
+              f"{layers} layers: its K4 launches {t_k:.4f} ms a synced call ({t_s:.4f} in a "
+              f"stream of calls, device "
+              f"{k['device_ms'] if k['device_ms'] is not None else 'not measured'}), the "
+              f"stack with its input GEMMs {t_stack:.4f} ms, the eager loop {t_p:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), share of bound {b_ms / t_k:.3f}", flush=True)
+    err = max(errs)
+    require(err <= 1e-4, f"K4 max abs error {err} > 1e-4")
+    print(f"K4 highway_lstm: max|err| {err:.3e} against the eager loop (tol 1e-4: f32 FMAs "
+          f"in the kernel's fixed order against cuBLAS's f32 GEMM), rows of 64 and of mixed "
+          f"lengths with dropout masks, padded positions 0", flush=True)
+    return dict(max_abs_err=err, **res["edge"], obj=res["obj"], library_ms=None,
+                library_reason="no single PyTorch call computes the highway-LSTM recurrence")
+
+
 def check_kernels(dev, gen) -> dict:
     """Each kernel against its plain version at the main path's shapes,
     with its time (CUDA events), its device time (profiler), its bound and
@@ -1251,6 +1361,7 @@ def check_kernels(dev, gen) -> dict:
                              library_ms=None,
                              library_reason="no single PyTorch call computes greedy NMS "
                                             "(torchvision.ops.nms is not installed)")
+    res["highway_lstm"] = check_highway_lstm(dev, gen)
     return res
 
 
@@ -2112,22 +2223,22 @@ def check_train(smi: str, label: str, train_args: list, plan: str,
 
 
 def kernel_device_times(fn, reps: int = 2, dev_t: dict | None = None) -> str:
-    """The device time of `fn`'s kernels (torch.profiler), K1-K3 apart (or
+    """The device time of `fn`'s kernels (torch.profiler), K1-K4 apart (or
     of a profile `dev_t` already taken of them)."""
     if dev_t is None:
-        dev_t = device_ms(fn, ("roi_align", "perclass_nms", "nms_mask", "nms_scan"),
-                          reps=reps)
+        dev_t = device_ms(fn, DEVICE_NAMES, reps=reps)
     if dev_t is None:
         return "not measured"
     return (f"{dev_t['all']:.3f} ms of kernels, of which K1 {dev_t['roi_align']:.3f}, "
-            f"K2 {dev_t['perclass_nms']:.3f}, K3 {dev_t['nms_mask'] + dev_t['nms_scan']:.3f} ms")
+            f"K2 {dev_t['perclass_nms']:.3f}, K3 {dev_t['nms_mask'] + dev_t['nms_scan']:.3f}, "
+            f"K4 {dev_t['highway_lstm']:.3f} ms")
 
 
 def eval_batch_profile(argv: list, datasets) -> str:
     """One batch of the first val images through the model eval_rels.main
     builds for `argv` (its seed, its -ckpt): the synced forward on the
     host's clock (median of 3) beside the device time of its kernels
-    (torch.profiler, 2 batches), K1-K3 apart; what the host adds is the
+    (torch.profiler, 2 batches), K1-K4 apart; what the host adds is the
     difference."""
     with contextlib.redirect_stdout(io.StringIO()):
         cfg = C.ModelConfig.from_args(argv)
@@ -2292,8 +2403,7 @@ def check_requests(label: str, model, dev, gen, smi: str, per_request: tuple) ->
     # the device time of one request, which the host's speed does not move
     # (after the counted requests: these launches are not counted), and the
     # busy share: that time over the median latency
-    dev_t = device_ms(lambda: model(requests[0], im_hw),
-                      ("roi_align", "perclass_nms", "nms_mask", "nms_scan"), reps=2)
+    dev_t = device_ms(lambda: model(requests[0], im_hw), DEVICE_NAMES, reps=2)
     busy = "not measured" if dev_t is None else f"{dev_t['all'] / (med * 1e3):.3f}"
     print(f"{label}request device time: " + kernel_device_times(None, dev_t=dev_t)
           + f" a request; busy share {busy} of the median latency", flush=True)
@@ -3300,7 +3410,7 @@ def check_int8_reference(smi: str, dev) -> None:
 
 def check_int8_bench(smi: str, dev) -> dict:
     """Phase 28 (b), second part: the bench config's SGDet model (phase 5)
-    under int8: REQUESTS requests with 4 / 1 / 1 launches each and valid
+    under int8: REQUESTS requests with 4 / 1 / 1 / 6 launches each and valid
     predictions; the union tower, the RoI head and the object tower at
     their calls' shapes, and a synced request, int8 against bf16 (CUDA
     events, the median of INT8_TIMING_REPS); then one sgcls eval batch of
@@ -3692,7 +3802,7 @@ def check_predict(smi: str) -> dict:
     -im_budget auto, bench-width weights from the seed with the detector's
     class biases spread) over PREDICT_IMAGES images after a warm-up run:
     images/s end to end, the decode + resize share, the launches (K1 4, K2
-    and K3 1 a batch), peak memory, every record checked; the rate with and
+    and K3 1, K4 6 a batch), peak memory, every record checked; the rate with and
     without the decode (PREDICT_ROUNDS runs each, interleaved), each run's
     loop split, the busy share; then NM_FAST_DECODE=1 on the large fixture.
     Returns its launches."""
@@ -3804,7 +3914,7 @@ def check_predict(smi: str) -> dict:
 SYNTH_STAGES = ("det", "sgcls", "sgdet", "stanford", "stanford-sgdet", "sgcls-plateau")
 SYNTH_WARMUP, SYNTH_TIMED = 2, 10
 SYNTH_PLATEAU_STEPS = 16
-# the launches (K1, K2, K3, K1's backward: KERNELS' order) of one unit of
+# the launches (K1, K2, K3, K1's backward, K4: KERNELS' order) of one unit of
 # each part of a stage at the full scale (batch 8, 592^2): a trunk warm-up
 # step (gtbox: K1 and its backward); a detector train step (rpntrain: K1,
 # K3 over 12 000 anchors, K1's backward); a heldout mAP batch (K1, K2 over
@@ -3812,19 +3922,20 @@ SYNTH_PLATEAU_STEPS = 16
 # training forward) and eval batch: in sgcls K1 for the detector's RoIs,
 # the objects and the unions (one chunk: 16 x 15 pairs an image); in sgdet
 # the RPN's K3 and the decode's K2 too, and 8 union chunks of 64 x 63
-# pairs in eval (Stanford's decode runs K3's lanes as well). Checked exactly
-# against each stage's parts.
+# pairs in eval (Stanford's decode runs K3's lanes as well); MotifNet's
+# calibration forward (no_grad) and eval batch run K4 on its 2 + 2 LSTM
+# layers. Checked exactly against each stage's parts.
 SYNTH_UNITS = {
-    "det": {"trunk_warmup": (1, 0, 0, 1), "train_loop": (1, 0, 1, 1),
-            "detector_map50": (1, 1, 1, 0)},
-    "motifnet sgcls": {"train_loop": (3, 0, 0, 0), "calibrate_batch_stats": (3, 0, 0, 0),
-                       "eval_recall": (3, 0, 0, 0)},
-    "motifnet sgdet": {"train_loop": (3, 1, 1, 0), "calibrate_batch_stats": (3, 1, 1, 0),
-                       "eval_recall": (10, 1, 1, 0)},
-    "stanford sgcls": {"train_loop": (3, 0, 0, 0), "calibrate_batch_stats": (3, 0, 0, 0),
-                       "eval_recall": (3, 0, 0, 0)},
-    "stanford sgdet": {"train_loop": (3, 1, 1, 0), "calibrate_batch_stats": (3, 1, 1, 0),
-                       "eval_recall": (10, 1, 2, 0)},
+    "det": {"trunk_warmup": (1, 0, 0, 1, 0), "train_loop": (1, 0, 1, 1, 0),
+            "detector_map50": (1, 1, 1, 0, 0)},
+    "motifnet sgcls": {"train_loop": (3, 0, 0, 0, 0), "calibrate_batch_stats": (3, 0, 0, 0, 4),
+                       "eval_recall": (3, 0, 0, 0, 4)},
+    "motifnet sgdet": {"train_loop": (3, 1, 1, 0, 0), "calibrate_batch_stats": (3, 1, 1, 0, 4),
+                       "eval_recall": (10, 1, 1, 0, 4)},
+    "stanford sgcls": {"train_loop": (3, 0, 0, 0, 0), "calibrate_batch_stats": (3, 0, 0, 0, 0),
+                       "eval_recall": (3, 0, 0, 0, 0)},
+    "stanford sgdet": {"train_loop": (3, 1, 1, 0, 0), "calibrate_batch_stats": (3, 1, 1, 0, 0),
+                       "eval_recall": (10, 1, 2, 0, 0)},
 }
 SYNTH_PARTS = ("trunk_warmup", "train_loop", "calibrate_batch_stats", "eval_recall",
                "detector_map50")
@@ -3845,7 +3956,7 @@ def synth_parts():
     launches (synced after it) and its units (steps, or batches) to the
     record, and every train step that train_synth builds is synced and
     timed (`step_s`)."""
-    rec = dict(launches=collections.defaultdict(lambda: np.zeros(4, np.int64)),
+    rec = dict(launches=collections.defaultdict(lambda: np.zeros(len(KERNELS), np.int64)),
                units=collections.Counter(), seconds=collections.Counter(), step_s=[])
     real = {name: getattr(train_synth, name) for name in SYNTH_PARTS + ("make_train_step",)}
     units_of = {"trunk_warmup": lambda a: a[2], "train_loop": lambda a: a[2],
@@ -4093,13 +4204,14 @@ RUNBOOK_REFERENCE_RUNS = (("predcls", False), ("sgcls", False), ("sgdet", True),
                           ("sgdet", False))
 RUNBOOK_RPN_BOX_ATOL = 2e-2
 RUNBOOK_IMAGES = 16   # (b): the -test split a mode, 3 batches at the canonical -b 6
-# (b)'s launches (K1, K2, K3, K1's backward) a batch at the canonical flags
-# (-max_pairs_eval 4096: every pair scored): predcls and sgcls RoIAlign the
-# objects and the union chunks; sgdet runs the RPN's NMS and filter_det too
-RUNBOOK_BATCH_LAUNCHES = {"predcls": (10, 0, 0, 0), "sgcls": (10, 0, 0, 0),
-                          "sgdet": (10, 1, 1, 0)}
+# (b)'s launches (K1, K2, K3, K1's backward, K4) a batch at the canonical
+# flags (-max_pairs_eval 4096: every pair scored): predcls and sgcls
+# RoIAlign the objects and the union chunks; sgdet runs the RPN's NMS and
+# filter_det too; K4 on the 6 LSTM layers
+RUNBOOK_BATCH_LAUNCHES = {"predcls": (10, 0, 0, 0, 6), "sgcls": (10, 0, 0, 0, 6),
+                          "sgdet": (10, 1, 1, 0, 6)}
 DRESS_STEPS = 200   # (c): the dress rehearsal's train stage
-DRESS_STEP_LAUNCHES = (3, 0, 0, 0)
+DRESS_STEP_LAUNCHES = (3, 0, 0, 0, 0)
 # (c)'s steps are cut only where the phase would outlast it (90 s since
 # phase 28 was added: the script keeps its margin under the 1200 s limit)
 PHASE26_BUDGET_S = 90

@@ -245,7 +245,10 @@ class ModelConfig:
         p.add_argument("-proposals", dest="use_proposals", action="store_true")
         p.add_argument("-nl_obj", dest="nl_obj", type=int, default=1)
         p.add_argument("-nl_edge", dest="nl_edge", type=int, default=2)
-        p.add_argument("-hidden_dim", dest="hidden_dim", type=int, default=256)
+        p.add_argument("-hidden_dim", dest="hidden_dim", type=int, default=256,
+                       help="the context LSTMs' width; on a CUDA device their eval "
+                            "kernel takes at most 4 units a SM (528 on an H100 SXM) "
+                            "and raises above that")
         p.add_argument("-pooling_dim", dest="pooling_dim", type=int, default=4096)
         p.add_argument("-obj_dim", dest="obj_dim", type=int, default=4096)
         p.add_argument("-embed_dim", dest="embed_dim", type=int, default=200)

@@ -43,6 +43,9 @@ _SIGNATURES = {
     "nm_perclass_nms": (_P, _P, _P, _I, _I, _F, _P),
     # boxes, valid, mask, keep, lanes, N, thresh, stream
     "nm_greedy_nms": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # gi, w_h, bias, lengths, dropout mask (or 0), out, B, T, H, reverse,
+    # stream
+    "nm_highway_lstm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

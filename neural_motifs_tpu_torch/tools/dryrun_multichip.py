@@ -43,7 +43,7 @@ import torch
 
 from neural_motifs_tpu_torch import config as C
 from neural_motifs_tpu_torch.models.rel_model import RelModel, disable_dropout_
-from neural_motifs_tpu_torch.ops import nms, quant, roi_align as ra
+from neural_motifs_tpu_torch.ops import highway_lstm as hl, nms, quant, roi_align as ra
 from neural_motifs_tpu_torch.parallel import distributed as D
 from neural_motifs_tpu_torch.parallel import mesh
 from neural_motifs_tpu_torch.training import train_state
@@ -67,7 +67,8 @@ FULL_WIDTHS = dict(hidden_dim=512, pooling_dim=4096, obj_dim=4096, embed_dim=200
                    nl_edge=4, order="leftright", use_bias=True, use_tanh=False,
                    limit_vision=False, thresh=0.05)
 KERNELS = {"roi_align_fwd": ra.roi_align_cuda, "perclass_nms": nms.perclass_nms_cuda,
-           "greedy_nms": nms.greedy_nms_cuda, "roi_align_bwd": ra.roi_align_bwd_cuda}
+           "greedy_nms": nms.greedy_nms_cuda, "roi_align_bwd": ra.roi_align_bwd_cuda,
+           "highway_lstm": hl.highway_lstm_cuda}
 
 
 def grid_shape(n: int, num_model: Optional[int] = None) -> tuple:

@@ -21,7 +21,7 @@ profile records, each span is also a `record_function` range
 "nm.<name>", on the trace's clock beside the kernels it launches.
 
 Counts go at the same boundaries: the bytes of each batch's device
-inputs, its images, and each run's launches of the four CUDA kernels (the
+inputs, its images, and each run's launches of the five CUDA kernels (the
 delta of their `.launches` counters). Outside a run a span or a count
 only checks a flag. Runs may nest; spans and counts belong to the
 innermost open run of the thread that opened it. `last_run(kind)` is the
@@ -46,7 +46,8 @@ _now = time.perf_counter_ns
 _KERNELS = (("K1", "roi_align", "roi_align_cuda"),
             ("K1 backward", "roi_align", "roi_align_bwd_cuda"),
             ("K2", "nms", "perclass_nms_cuda"),
-            ("K3", "nms", "greedy_nms_cuda"))
+            ("K3", "nms", "greedy_nms_cuda"),
+            ("K4", "highway_lstm", "highway_lstm_cuda"))
 
 
 def print_para(model: nn.Module) -> str:
@@ -105,9 +106,9 @@ class PairBudgetTelemetry:
 
 
 def kernel_launches() -> dict:
-    """The four CUDA kernels' launch counters, by kernel."""
-    from neural_motifs_tpu_torch.ops import nms, roi_align
-    mods = {"roi_align": roi_align, "nms": nms}
+    """The five CUDA kernels' launch counters, by kernel."""
+    from neural_motifs_tpu_torch.ops import highway_lstm, nms, roi_align
+    mods = {"roi_align": roi_align, "nms": nms, "highway_lstm": highway_lstm}
     return {k: getattr(mods[m], fn).launches for k, m, fn in _KERNELS}
 
 

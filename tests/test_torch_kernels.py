@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 RoIAlign and its backward, K2 per-class NMS,
-K3 greedy NMS) against their plain PyTorch versions, and the device dispatch of their
+K3 greedy NMS, K4 the highway-LSTM layer) against their plain PyTorch versions, and the device dispatch of their
 wrappers. Imports torch and numpy only, so the file runs on a GPU host
 without jax:
 
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from neural_motifs_tpu_torch.ops import _cuda
+from neural_motifs_tpu_torch.ops import highway_lstm as hl
 from neural_motifs_tpu_torch.ops import nms
 from neural_motifs_tpu_torch.ops import roi_align as ra
 
@@ -627,3 +628,186 @@ def test_spans_add_no_sync_and_time_the_device(cuda, monkeypatch):
     assert all(r.device_s > 0 for r in run.records if r.name in DEVICE_SPANS), \
         [(r.name, r.device_s) for r in run.records if r.name in DEVICE_SPANS]
     assert not run.pending
+
+
+def lstm_case(rng, b, t, d, h, layers, lengths, dropout=False, device="cpu"):
+    """A highway-LSTM stack's params (fan-in scaled, forget bias 1), inputs
+    [B, T, D] ~ N(0, 1), lengths [B] int64 and per layer a [B, H] dropout
+    mask scaled by 1 / 0.9 (or None)."""
+    def t32(a):
+        return T(np.asarray(a, np.float32)).to(device)
+    params = []
+    for layer in range(layers):
+        d_in = d if layer == 0 else h
+        bias = rng.uniform(-0.1, 0.1, 5 * h)
+        bias[h:2 * h] += 1.0
+        params.append({"w_i": t32(rng.uniform(-1, 1, (d_in, 6 * h)) / np.sqrt(d_in)),
+                       "w_h": t32(rng.uniform(-1, 1, (h, 5 * h)) / np.sqrt(h)),
+                       "bias": t32(bias)})
+    x = t32(rng.standard_normal((b, t, d)))
+    masks = ([t32((rng.uniform(0, 1, (b, h)) < 0.9) / 0.9) for _ in range(layers)]
+             if dropout else None)
+    return params, x, T(np.asarray(lengths, np.int64)).to(device), masks
+
+
+@pytest.fixture
+def no_lstm_kernel(monkeypatch):
+    """`_cuda.lib()` raises: nothing under test may reach the kernel library."""
+    def refuse():
+        raise AssertionError("reached _cuda.lib()")
+    monkeypatch.setattr(_cuda, "lib", refuse)
+
+
+def test_cpu_highway_lstm_takes_the_plain_loop(np_rng, no_lstm_kernel):
+    """CPU tensors run the eager loop whether autograd records or not, never
+    reach the kernel library and count no launch; the kernel's wrapper
+    refuses CPU tensors."""
+    before = hl.highway_lstm_cuda.launches
+    params, x, lengths, masks = lstm_case(np_rng, 3, 7, 10, 6, 3, [7, 0, 4], dropout=True)
+    exp = hl._alternating(params, x, lengths, masks, kernel=False)
+    with torch.no_grad():
+        torch.testing.assert_close(hl.alternating_highway_lstm(params, x, lengths, masks),
+                                   exp, rtol=0, atol=0)
+    for p in params:
+        for v in p.values():
+            v.requires_grad_(True)
+    got = hl.alternating_highway_lstm(params, x, lengths, masks)
+    assert got.requires_grad
+    torch.testing.assert_close(got.detach(), exp, rtol=0, atol=0)
+    assert hl.highway_lstm_cuda.launches == before
+    p = params[0]
+    with pytest.raises(ValueError, match="CUDA"):
+        hl.highway_lstm_cuda((x @ p["w_i"]).detach(), p["w_h"].detach(),
+                             p["bias"].detach(), lengths)
+
+
+@pytest.mark.parametrize("bad", ["gi_width", "w_h", "bias", "lengths", "mask", "f64"])
+def test_highway_lstm_cuda_checks_its_inputs(np_rng, no_lstm_kernel, bad):
+    """The wrapper raises on a shape or type the kernel does not take,
+    before it reaches the kernel library."""
+    b, t, h = 2, 5, 8
+    gi = torch.zeros(b, t, 6 * h)
+    w_h, bias = torch.zeros(h, 5 * h), torch.zeros(5 * h)
+    lengths, mask = torch.tensor([5, 3]), torch.ones(b, h)
+    if bad == "gi_width":
+        gi = torch.zeros(b, t, 5 * h)
+    elif bad == "w_h":
+        w_h = torch.zeros(h, 6 * h)
+    elif bad == "bias":
+        bias = torch.zeros(6 * h)
+    elif bad == "lengths":
+        lengths = torch.tensor([5, 3, 1])
+    elif bad == "mask":
+        mask = torch.ones(b, h + 1)
+    else:
+        gi = gi.double()
+    with pytest.raises(TypeError if bad == "f64" else ValueError):
+        hl.highway_lstm_cuda(gi, w_h, bias, lengths, mask)
+
+
+@pytest.mark.parametrize("mode,param_grad,x_grad,records", [
+    ("grad", True, False, True), ("grad", False, True, True),
+    ("grad", False, False, False), ("no_grad", True, True, False),
+    ("inference", True, False, False)])
+def test_highway_lstm_dispatch_follows_autograd(np_rng, mode, param_grad, x_grad, records):
+    """The kernel path is taken unless autograd records the call: grad mode
+    on and the input or a parameter requiring a gradient."""
+    params, x, _, _ = lstm_case(np_rng, 2, 3, 4, 4, 2, [3, 1])
+    for p in params:
+        for v in p.values():
+            v.requires_grad_(param_grad)
+    x.requires_grad_(x_grad)
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[mode]
+    with ctx():
+        assert hl._records_grad(params, x) is records
+
+
+def mixed_lengths(rng, b, t):
+    """Lengths T, 0 and 1 (as many as B holds) among uniform draws in [0, T]."""
+    lengths = rng.randint(0, t + 1, b)
+    lengths[:3] = [t, 0, 1][:b]
+    return lengths
+
+
+def assert_lstm_kernel_matches(params, x, lengths, masks):
+    """The stack through the kernel (autograd off) against the eager loop on
+    the same CUDA inputs: within 1e-4 at outputs of magnitude ~1 (f32 FMAs in
+    the kernel's fixed order against cuBLAS's f32 GEMM, ~1e-6 a step, carried
+    through the recurrence), exactly 0 at every padded position, one launch
+    a layer."""
+    before = hl.highway_lstm_cuda.launches
+    with torch.no_grad():
+        got = hl.alternating_highway_lstm(params, x, lengths, masks)
+        torch.cuda.synchronize()
+        assert hl.highway_lstm_cuda.launches == before + len(params)
+        exp = hl._alternating(params, x, lengths, masks, kernel=False)
+    assert got.shape == exp.shape and got.dtype == torch.float32
+    pad = torch.arange(x.shape[1], device=x.device)[None, :] >= lengths[:, None]
+    assert not got[pad].any(), "padded positions must be exactly 0"
+    assert (got - exp).abs().max().item() <= 1e-4
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [False, True], ids=["eval", "dropout"])
+@pytest.mark.parametrize("d,layers", [(4424, 2), (4808, 4)], ids=["obj", "edge"])
+def test_highway_lstm_kernel_matches_plain(np_rng, cuda, d, layers, dropout):
+    """K4 at the sgdet cell's shapes (B 16, T 64, H 512; the object stack's
+    4424 inputs and 2 layers, the edge stack's 4808 and 4), both directions,
+    lengths 0, 1, 64 and random, with and without dropout masks."""
+    params, x, lengths, masks = lstm_case(np_rng, 16, 64, d, 512, layers,
+                                          mixed_lengths(np_rng, 16, 64), dropout, cuda)
+    assert_lstm_kernel_matches(params, x, lengths, masks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,d", [(1, 37, 256, 300), (3, 13, 16, 24),
+                                     (40, 9, 512, 64), (5, 11, 102, 7)])
+def test_highway_lstm_kernel_other_shapes(np_rng, cuda, b, t, h, d):
+    """K4 at predict's B 1 with the default hidden 256, a tiny H, a batch of
+    three row tiles (40), an H that is no multiple of 4; T of 37, 13, 9, 11."""
+    params, x, lengths, masks = lstm_case(np_rng, b, t, d, h, 3, mixed_lengths(np_rng, b, t),
+                                          device=cuda)
+    assert_lstm_kernel_matches(params, x, lengths, masks)
+
+
+@pytest.mark.gpu
+def test_highway_lstm_kernel_all_empty(np_rng, cuda):
+    """Every length 0: no step runs, the output is all zeros."""
+    params, x, lengths, _ = lstm_case(np_rng, 4, 6, 8, 32, 2, [0, 0, 0, 0], device=cuda)
+    got = assert_lstm_kernel_matches(params, x, lengths, None)
+    assert not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1024, 2048])
+def test_highway_lstm_kernel_refuses_large_hidden(cuda, h):
+    """A hidden size that needs more blocks of 4 units than the card has
+    SMs raises, before any launch."""
+    gi = torch.zeros(2, 3, 6 * h, device=cuda)
+    w_h, bias = torch.zeros(h, 5 * h, device=cuda), torch.zeros(5 * h, device=cuda)
+    before = hl.highway_lstm_cuda.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        hl.highway_lstm_cuda(gi, w_h, bias, torch.tensor([3, 2], device=cuda))
+    assert hl.highway_lstm_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_highway_lstm_under_autograd_takes_plain_loop(np_rng, cuda):
+    """With parameters requiring gradients and grad mode on, CUDA tensors
+    run the eager loop: no launch, and the same outputs and gradients as
+    the plain loop called directly."""
+    params, x, lengths, masks = lstm_case(np_rng, 4, 9, 12, 16, 2, [9, 0, 5, 1],
+                                          dropout=True, device=cuda)
+    for p in params:
+        for v in p.values():
+            v.requires_grad_(True)
+    before = hl.highway_lstm_cuda.launches
+    got = hl.alternating_highway_lstm(params, x, lengths, masks)
+    grads = torch.autograd.grad(got.square().sum(), [p["w_h"] for p in params])
+    assert hl.highway_lstm_cuda.launches == before
+    exp = hl._alternating(params, x, lengths, masks, kernel=False)
+    exp_grads = torch.autograd.grad(exp.square().sum(), [p["w_h"] for p in params])
+    assert torch.equal(got, exp)
+    assert all(torch.equal(a, e) for a, e in zip(grads, exp_grads))
